@@ -1,10 +1,10 @@
 // Native BVH builder: binned SAH over triangles -> threaded (skip-link) flat
-// layout, bit-matching the Python reference in gltf_renderer_tpu/ops/bvh.py.
+// layout, bit-matching the Python reference in gltf_renderer/ops/bvh.py.
 //
 // This is the framework's native "graph builder" analogue of the reference's
 // D3D12 BLAS/TLAS build path (RayTracingAccelerationStructure.cpp): the
-// traversal structure is produced on host and shipped to the TPU as flat
-// arrays. C API, loaded via ctypes (no pybind11 in this environment).
+// traversal structure is produced on host and shipped to the device as
+// flat arrays. C API, loaded via ctypes (no pybind11 in this environment).
 //
 // Layout invariants (see ops/bvh.py FlatBVH):
 //   - DFS order, left child == parent + 1
@@ -91,9 +91,9 @@ struct Builder {
             return node;
         }
 
-        // Binned SAH over ALL 3 axes (round-3 union study: all-axes splits
-        // cut packet-union visits up to 7% vs largest-extent-only; the
-        // exhaustive sweep gains no more than the binned all-axes search).
+        // Binned SAH over ALL 3 axes: fewer node visits than
+        // largest-extent-only splits (tools/bvh_union_sim.py), and an
+        // exhaustive sweep gained no more than the binned all-axes search.
         float ext[3] = {cb_box.hi.x - cb_box.lo.x, cb_box.hi.y - cb_box.lo.y,
                         cb_box.hi.z - cb_box.lo.z};
         int axis = 0;  // largest extent: the median-split fallback axis

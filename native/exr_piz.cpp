@@ -1,5 +1,5 @@
 // Native PIZ scanline-block decoder — C++ port of the repo's own Python
-// implementation (gltf_renderer_tpu/env/piz.py: bitmap/LUT + canonical
+// implementation (gltf_renderer/env/piz.py: bitmap/LUT + canonical
 // Huffman with zero-run codes + 2D wavelet, written to the OpenEXR PIZ
 // specification). The Python path is correct but bit-serial and costs
 // ~minutes on a real 4k environment map; this is the hot loader path the

@@ -23,9 +23,9 @@ import os
 
 import numpy as np
 
-from gltf_renderer_tpu.camera import look_at
-from gltf_renderer_tpu.render import settings as S
-from gltf_renderer_tpu.render.renderer import Renderer
+from gltf_renderer.camera import look_at
+from gltf_renderer.render import settings as S
+from gltf_renderer.render.renderer import Renderer
 
 
 def _analytic_equirect(h=32, w=64):
@@ -110,7 +110,7 @@ def render_materials_pt(tmp):
 
 
 def render_courtyard_pt(tmp):
-    from gltf_renderer_tpu.scene.procedural import write_courtyard_glb
+    from gltf_renderer.scene.procedural import write_courtyard_glb
 
     path = write_courtyard_glb(os.path.join(tmp, "courtyard.glb"), tex_size=64)
     r = _renderer(path, 128, 72, "pathtracer",
@@ -131,7 +131,7 @@ def render_debug_channels(tmp, res=(64, 48)):
     """
     import jax.numpy as jnp
 
-    from gltf_renderer_tpu.render import pathtracer as pt
+    from gltf_renderer.render import pathtracer as pt
     from tests.scenes import write_materials_gltf
 
     path = write_materials_gltf(os.path.join(tmp, "zoo.gltf"))

@@ -1,6 +1,6 @@
 """Shim: procedural test scenes live in the package (used by bench + graft)."""
 
-from gltf_renderer_tpu.scene.procedural import (  # noqa: F401
+from gltf_renderer.scene.procedural import (  # noqa: F401
     box_mesh,
     uv_sphere,
     write_box_gltf,
@@ -9,4 +9,4 @@ from gltf_renderer_tpu.scene.procedural import (  # noqa: F401
     write_morph_gltf,
     write_camera_anim_gltf,
 )
-from gltf_renderer_tpu.scene.procedural import write_materials_gltf, write_foliage_gltf  # noqa: F401,E501
+from gltf_renderer.scene.procedural import write_materials_gltf, write_foliage_gltf  # noqa: F401,E501

@@ -1,9 +1,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gltf_renderer_tpu.ops import bsdf
-from gltf_renderer_tpu.ops import sampling
-from gltf_renderer_tpu.ops import rng
+from gltf_renderer.ops import bsdf
+from gltf_renderer.ops import sampling
+from gltf_renderer.ops import rng
 
 
 def test_ggx_d_normalized():

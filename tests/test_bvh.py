@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gltf_renderer_tpu.ops import bvh as bvh_ops
+from gltf_renderer.ops import bvh as bvh_ops
 from tests.scenes import uv_sphere
 
 
@@ -117,34 +117,11 @@ def test_bvh_refit_matches_rebuild():
     assert abs(float(hit.t[0]) - 4.0) < 0.05
 
 
-def test_conservative_bf16_boxes_contain_f32():
-    """Outward-rounded bf16 wide boxes must CONTAIN their f32 boxes exactly
-    (los <= f32 los, his >= f32 his) — the correctness precondition for a
-    bf16 box-test kernel (traversal may over-visit, never miss)."""
-    import numpy as np
-
-    from gltf_renderer_tpu.ops.bvh import conservative_bf16_boxes
-
-    rng = np.random.RandomState(11)
-    lo = (rng.randn(512, 4, 3) * 100).astype(np.float32)
-    hi = lo + rng.rand(512, 4, 3).astype(np.float32) * 10
-    rows = np.concatenate([lo, hi], axis=2).reshape(512, 24)
-    out = np.asarray(conservative_bf16_boxes(rows), np.float32).reshape(512, 4, 6)
-    assert (out[:, :, 0:3] <= lo + 0).all(), "bf16 lo must round DOWN"
-    assert (out[:, :, 3:6] >= hi - 0).all(), "bf16 hi must round UP"
-    # Values that are exactly representable stay exact.
-    exact = np.round(lo * 0 + 2.0, 0)
-    rows2 = np.concatenate([exact, exact + 2.0], axis=2).reshape(512, 24)
-    out2 = np.asarray(conservative_bf16_boxes(rows2), np.float32).reshape(512, 4, 6)
-    np.testing.assert_array_equal(out2[:, :, 0:3], exact)
-    np.testing.assert_array_equal(out2[:, :, 3:6], exact + 2.0)
-
-
 def test_union_visit_quality_band():
-    """Packet-union visit quality (the traversal cost driver,
-    docs/PERFORMANCE.md round-3 study): pin the builder's union visits on a
-    fixed scene to a band so construction changes can't silently regress
-    packet cost. Bounds set ~15% above the all-axes binned SAH result."""
+    """Union visit quality of a ray group (tools/bvh_union_sim.py): pin the
+    builder's union visits on a fixed scene to a band so construction
+    changes can't silently regress traversal cost. Bounds set ~15% above
+    the all-axes binned SAH result."""
     import sys
 
     sys.path.insert(0, ".")

@@ -6,9 +6,9 @@ import os
 
 import numpy as np
 import pytest
-from PIL import Image
 
-from gltf_renderer_tpu.app.cli import main
+from gltf_renderer.app.cli import main
+from gltf_renderer.utils.png import load_png
 from tests.scenes import write_box_gltf
 
 
@@ -20,7 +20,7 @@ def box(tmp_path_factory):
 
 
 def _png(path):
-    img = np.asarray(Image.open(path))
+    img = load_png(path)
     assert img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
     return img
 

@@ -7,13 +7,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gltf_renderer_tpu.env import environment as E
-from gltf_renderer_tpu.render import pathtracer as pt
-from gltf_renderer_tpu.render import rasterizer
-from gltf_renderer_tpu.render import settings as S
-from gltf_renderer_tpu.scene import flatten
-from gltf_renderer_tpu.scene.gltf import load_gltf
-from gltf_renderer_tpu.camera import Camera, look_at
+from gltf_renderer.env import environment as E
+from gltf_renderer.render import pathtracer as pt
+from gltf_renderer.render import rasterizer
+from gltf_renderer.render import settings as S
+from gltf_renderer.scene import flatten
+from gltf_renderer.scene.gltf import load_gltf
+from gltf_renderer.camera import Camera, look_at
 from tests.scenes import write_box_gltf
 
 
@@ -101,7 +101,7 @@ def setup_multislot(tmp_path_factory):
     compact-row addressing shared by both backends (a raster call that reads
     compact rows with full-row offsets mis-addresses every slot past the
     first — the round-3 bug this guards against)."""
-    from gltf_renderer_tpu.scene.procedural import write_multiuv_gltf
+    from gltf_renderer.scene.procedural import write_multiuv_gltf
 
     path = str(tmp_path_factory.mktemp("m") / "multiuv.gltf")
     write_multiuv_gltf(path)
@@ -163,7 +163,7 @@ def test_multislot_raster_vs_pt(setup_multislot):
 def test_compact_rows_match_full_rows(setup_multislot):
     """sample_slots_fused(compact=True) on the PT scene's compacted rows ==
     the same slots sampled from the loader's FULL rows (compact=False)."""
-    from gltf_renderer_tpu.ops.material import sample_slots_fused
+    from gltf_renderer.ops.material import sample_slots_fused
 
     scene, ptscene, meta, _cam = setup_multislot
     slots = meta.used_slots

@@ -1,4 +1,4 @@
-"""Per-debug-channel golden locks (VERDICT r3 #8).
+"""Per-debug-channel golden locks.
 
 All 28 PT debug channels (PathTracer.lib.hlsl:806-990) rendered on the
 materials zoo and compared against committed float16 goldens — a BSDF or
@@ -16,7 +16,7 @@ import os
 import numpy as np
 import pytest
 
-from gltf_renderer_tpu.render import settings as S
+from gltf_renderer.render import settings as S
 from tests.golden_configs import GOLDEN_DIR, render_debug_channels
 
 _CHANNEL_NAMES = [

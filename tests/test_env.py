@@ -2,10 +2,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gltf_renderer_tpu.env import environment as E
-from gltf_renderer_tpu.env import hdr_io
-from gltf_renderer_tpu.ops import rng
-from gltf_renderer_tpu.utils.math import square_to_sphere, uv_to_unit_square
+from gltf_renderer.env import environment as E
+from gltf_renderer.env import hdr_io
+from gltf_renderer.ops import rng
+from gltf_renderer.utils.math import square_to_sphere, uv_to_unit_square
 
 
 def _test_equirect(h=64, w=128):
@@ -164,7 +164,7 @@ def test_exr_piz_float_roundtrip(tmp_path):
 def test_piz_native_matches_python():
     """native/exr_piz.cpp must decode byte-identically to the pure-Python
     reference path on half, float, and wide-value-range blocks."""
-    from gltf_renderer_tpu.env import piz
+    from gltf_renderer.env import piz
 
     if piz._native_piz() is None:
         pytest.skip("native lib unavailable")
@@ -288,7 +288,7 @@ def test_exr_piz_sheen_lut():
     ref_path = "/root/reference/Resources/Sheen_E.exr"
     if not os.path.exists(ref_path):
         pytest.skip("reference EXR not available")
-    from gltf_renderer_tpu.ops.bsdf import sheen_e_table, sheen_e_table_mc
+    from gltf_renderer.ops.bsdf import sheen_e_table, sheen_e_table_mc
 
     img = hdr_io.read_exr(ref_path)
     assert img.shape == (16, 16, 1)
@@ -311,7 +311,7 @@ def test_piz_corrupt_bitmap_span_rejected():
     (no OOB write, exr_piz.cpp rc=-10) and the Python fallback raises."""
     import struct
 
-    from gltf_renderer_tpu.env import piz
+    from gltf_renderer.env import piz
 
     bad = struct.pack("<HH", 60000, 60001) + b"\x01\x01" + struct.pack("<i", 24) + b"\x00" * 24
     with pytest.raises(Exception):
@@ -321,9 +321,9 @@ def test_piz_corrupt_bitmap_span_rejected():
 def test_cube_quad_sampling_bit_exact(env, monkeypatch):
     """build_cube_quads + quad sampling (the raster IBL 2-row path) must be
     bit-identical to the 8-row fused trilinear gather, including face-edge
-    clamps and level endpoints — with f32 rows (GLTF_TPU_QUADF32=1), which
+    clamps and level endpoints — with f32 rows (GLTF_QUADF32=1), which
     isolates the indexing/corner-select logic from storage precision."""
-    monkeypatch.setenv("GLTF_TPU_QUADF32", "1")
+    monkeypatch.setenv("GLTF_QUADF32", "1")
     rs = np.random.RandomState(11)
     d = rs.normal(size=(512, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)

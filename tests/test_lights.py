@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gltf_renderer_tpu.ops.lights import get_light_ray, sample_point_light
-from gltf_renderer_tpu.scene.types import (
+from gltf_renderer.ops.lights import get_light_ray, sample_point_light
+from gltf_renderer.scene.types import (
     GpuLights,
     LIGHT_TYPE_DIRECTIONAL,
     LIGHT_TYPE_POINT,

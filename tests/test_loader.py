@@ -1,8 +1,8 @@
 import numpy as np
 
-from gltf_renderer_tpu.scene.gltf import load_gltf
-from gltf_renderer_tpu.scene import flatten
-from gltf_renderer_tpu.scene import types as T
+from gltf_renderer.scene.gltf import load_gltf
+from gltf_renderer.scene import flatten
+from gltf_renderer.scene import types as T
 from tests.scenes import write_box_gltf, write_textured_sphere_glb, write_skinned_gltf, write_morph_gltf
 
 
@@ -129,12 +129,10 @@ def test_texture_transform_roundtrip(tmp_path):
     path = write_box_gltf(str(tmp_path / "b.gltf"))
     doc = json.load(open(path))
     # Attach a dummy texture with a transform.
-    import io, base64
-    from PIL import Image
+    import base64
     import numpy as np_
-    buf = io.BytesIO()
-    Image.fromarray(np_.full((4, 4, 4), 128, np_.uint8), "RGBA").save(buf, format="PNG")
-    png = base64.b64encode(buf.getvalue()).decode()
+    from gltf_renderer.utils.png import encode_png
+    png = base64.b64encode(encode_png(np_.full((4, 4, 4), 128, np_.uint8))).decode()
     doc["images"] = [{"uri": "data:image/png;base64," + png}]
     doc["textures"] = [{"source": 0}]
     doc.setdefault("extensionsUsed", []).append("KHR_texture_transform")

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gltf_renderer_tpu.utils import math as m
+from gltf_renderer.utils import math as m
 
 
 def random_unit_vectors(n, seed=0):

@@ -11,7 +11,7 @@ through, documented deviation).
 import numpy as np
 import pytest
 
-from gltf_renderer_tpu.env.environment import (
+from gltf_renderer.env.environment import (
     build_image_mips,
     generate_mip_level,
 )
@@ -96,8 +96,8 @@ def test_numpy_twin_matches_jax():
     """ops/texture.build_atlas_mips' load-time numpy filter must match the
     jax generate_mip_level exactly (two implementations of the same shader
     port — this pins them together)."""
-    from gltf_renderer_tpu.ops import texture as TX
-    from gltf_renderer_tpu.scene import types as T
+    from gltf_renderer.ops import texture as TX
+    from gltf_renderer.scene import types as T
 
     rs = np.random.RandomState(9)
     img = (rs.rand(11, 14, 4) * 255).astype(np.uint8)
@@ -109,7 +109,7 @@ def test_numpy_twin_matches_jax():
         nearest=np.array([0], np.int32), srgb=np.array([0], np.int32),
         rows=np.array([[0, 0, 14, 11, 0, 0, 0, 0, 0]], np.float32),
     )
-    from gltf_renderer_tpu.ops.texture import decode_atlas_linear
+    from gltf_renderer.ops.texture import decode_atlas_linear
     tex = decode_atlas_linear(tex)
     tex = TX.build_atlas_mips(tex)
     lin = np.asarray(tex.atlas_linear).reshape(11, 14, 4).astype(np.float32)

@@ -1,18 +1,25 @@
-"""Packet-traversal Pallas kernel vs the XLA packed traversal (ground truth).
+"""Per-ray traversal kernel vs the XLA packed traversal (ground truth).
 
-The packet kernel (ops/pallas_trace.traverse_packets) is the TPU fast path for
-every ray the path tracer dispatches; these tests run it in interpret mode on
-CPU against ops/bvh.intersect_closest_p / intersect_any_p across all filter
-combinations (cull_sign, blend_mode, any_hit) and degenerate rays — the DXR
-TraceRay flag semantics (Pathtracer.cpp:344-353).
+The kernel (ops/triton_trace.traverse) is the GPU path for every ray the
+path tracer dispatches; these tests run it in interpret mode on the CPU
+against ops/bvh.intersect_closest_p / intersect_any_p across the filter
+combinations (cull_sign, blend_mode, any-hit, per-lane mode) and degenerate
+rays — the DXR TraceRay flag semantics (Pathtracer.cpp:344-353). The same
+comparison at full size runs compiled on the card in chip_smoke.py.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from gltf_renderer_tpu.ops import bvh as bvh_ops
-from gltf_renderer_tpu.ops.pallas_trace import traverse_packets
+from gltf_renderer.ops import bvh as bvh_ops
+from gltf_renderer.ops import triton_trace
+from gltf_renderer.render import pathtracer as pt
+
+
+def traverse(packed, o, d, t_min, t_max, **kw):
+    return triton_trace.traverse(packed, o, d, t_min, t_max, interpret=True, **kw)
 
 
 def _random_scene(n_tris, seed, all_flags=True):
@@ -50,34 +57,23 @@ def _random_rays(n_rays, seed, coherent=False):
     return jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_min), jnp.asarray(t_max)
 
 
-def _compare_closest(packed, o, d, t_min, t_max, cull_sign, blend_mode,
-                     width=4):
+def assert_closest_parity(ref, t, word, u, v, sel=None):
+    """The parity rule of triton_trace.compare_hits: identical hit/miss; t
+    within rtol 1e-4 / atol 1e-5; a different triangle only on a t-tie; u, v
+    within rtol 1e-3 where the same triangle won. `sel` restricts the
+    comparison to some lanes."""
+    report = triton_trace.compare_hits(ref, t, word, u, v, sel)
+    assert triton_trace.hits_agree(report), report
+    assert report["lanes"] > 0
+
+
+def _compare_closest(packed, o, d, t_min, t_max, cull_sign, blend_mode):
     ref = bvh_ops.intersect_closest_p(
         packed, o, d, t_min, t_max, blend_mode=blend_mode, cull_sign=cull_sign
     )
-    t, word, u, v = traverse_packets(
-        packed, o, d, t_min, t_max,
-        cull_sign=cull_sign, blend_mode=blend_mode, interpret=True, width=width,
-    )
-    tri = np.where(np.asarray(word) >= 0, np.asarray(word) & bvh_ops.ID_MASK, -1)
-    ref_tri = np.asarray(ref.tri)
-    ref_t = np.asarray(ref.t)
-    t = np.asarray(t)
-
-    hit_ref = ref_tri >= 0
-    hit_ker = tri >= 0
-    np.testing.assert_array_equal(hit_ker, hit_ref)
-    # Hit distances agree to FP tolerance; near-ties may pick either triangle.
-    np.testing.assert_allclose(t[hit_ref], ref_t[hit_ref], rtol=1e-4, atol=1e-5)
-    same_tri = tri == ref_tri
-    close = np.abs(t - ref_t) <= 1e-4 * np.maximum(np.abs(ref_t), 1.0)
-    assert np.all(same_tri | (hit_ref & close)), (
-        f"{(~(same_tri | close)).sum()} rays picked a non-tie different triangle"
-    )
-    # Barycentrics agree where the same triangle won.
-    m = same_tri & hit_ref
-    np.testing.assert_allclose(np.asarray(u)[m], np.asarray(ref.u)[m], rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(v)[m], np.asarray(ref.v)[m], rtol=1e-3, atol=1e-4)
+    t, word, u, v = traverse(packed, o, d, t_min, t_max,
+                             cull_sign=cull_sign, blend_mode=blend_mode)
+    assert_closest_parity(ref, t, word, u, v)
 
 
 @pytest.mark.parametrize("cull_sign", [-1, 0, 1])
@@ -102,34 +98,11 @@ def test_closest_coherent_packet():
     _compare_closest(packed, o, d, t_min, t_max, 0, bvh_ops.BLEND_ANY)
 
 
-@pytest.mark.parametrize("cull_sign,blend_mode", [
-    (0, bvh_ops.BLEND_ANY), (1, bvh_ops.BLEND_ANY), (-1, bvh_ops.BLEND_ANY),
-    (0, bvh_ops.BLEND_EXCLUDE), (0, bvh_ops.BLEND_ONLY),
-])
-def test_closest_matches_xla_wide8(cull_sign, blend_mode):
-    """8-wide nodes (3 collapsed binary levels) against the XLA reference."""
-    packed = _random_scene(300, seed=41)
-    o, d, t_min, t_max = _random_rays(384, seed=43)
-    _compare_closest(packed, o, d, t_min, t_max, cull_sign, blend_mode, width=8)
-
-
-def test_any_hit_wide8():
-    packed = _random_scene(200, seed=47)
-    o, d, t_min, t_max = _random_rays(256, seed=53)
-    ref = bvh_ops.intersect_any_p(packed, o, d, t_min, t_max)
-    t, word, u, v = traverse_packets(
-        packed, o, d, t_min, t_max, any_hit=True, interpret=True, width=8
-    )
-    np.testing.assert_array_equal(np.asarray(word) >= 0, np.asarray(ref))
-
-
 def test_any_hit_matches_xla():
     packed = _random_scene(200, seed=31)
     o, d, t_min, t_max = _random_rays(256, seed=37)
     ref = bvh_ops.intersect_any_p(packed, o, d, t_min, t_max)
-    t, word, u, v = traverse_packets(
-        packed, o, d, t_min, t_max, any_hit=True, interpret=True
-    )
+    t, word, u, v = traverse(packed, o, d, t_min, t_max, any_hit=True)
     np.testing.assert_array_equal(np.asarray(word) >= 0, np.asarray(ref))
 
 
@@ -147,7 +120,7 @@ def test_degenerate_rays():
     t_min = jnp.zeros(4, jnp.float32)
     t_max = jnp.full(4, 20.0, jnp.float32)
     ref = bvh_ops.intersect_closest_p(packed, o, d, t_min, t_max)
-    t, word, u, v = traverse_packets(packed, o, d, t_min, t_max, interpret=True)
+    t, word, u, v = traverse(packed, o, d, t_min, t_max)
     np.testing.assert_array_equal(np.asarray(word) >= 0, np.asarray(ref.tri) >= 0)
     assert np.isfinite(np.asarray(t)).all()
 
@@ -156,190 +129,196 @@ def test_tmin_offset_respected():
     """Rays restarted past a hit (alpha retraversal pattern) skip that hit."""
     packed = _random_scene(200, seed=43)
     o, d, t_min, t_max = _random_rays(256, seed=47, coherent=True)
-    t0, w0, _, _ = traverse_packets(packed, o, d, t_min, t_max, interpret=True)
+    t0, w0, _, _ = traverse(packed, o, d, t_min, t_max)
     has = np.asarray(w0) >= 0
     t_min2 = jnp.where(jnp.asarray(has), t0 * 1.0001 + 1e-5, t_max + 1.0)
     ref = bvh_ops.intersect_closest_p(packed, o, d, t_min2, t_max)
-    t1, w1, _, _ = traverse_packets(packed, o, d, t_min2, t_max, interpret=True)
+    t1, w1, _, _ = traverse(packed, o, d, t_min2, t_max)
     np.testing.assert_array_equal(np.asarray(w1) >= 0, np.asarray(ref.tri) >= 0)
     both = (np.asarray(w1) >= 0) & has
     assert np.all(np.asarray(t1)[both] > np.asarray(t0)[both])
 
 
 def test_lane_mode_mixed_dispatch():
-    """any_hit="lane": closest and any-hit rays mixed per-lane in ONE dispatch
-    (the merged bounce+shadow path) must match the pure dispatches exactly —
-    closest lanes vs intersect_closest_p, any-hit lanes vs intersect_any_p.
-    Culling applies only to the closest lanes."""
-    from gltf_renderer_tpu.ops import bvh as bvh_ops
-    from gltf_renderer_tpu.ops.pallas_trace import traverse_packets_wide
-    import jax.numpy as jnp
-
+    """any_hit="lane": closest and any-hit rays mixed per lane in ONE
+    dispatch (the merged bounce+shadow path) must match the pure dispatches
+    — closest lanes vs intersect_closest_p, any-hit lanes vs
+    intersect_any_p. Culling applies only to the closest lanes."""
     packed = _random_scene(96, seed=5)
     o, d, t_min, t_max = _random_rays(160, seed=6)
     rs = np.random.RandomState(7)
     mode = jnp.asarray((rs.rand(160) < 0.5).astype(np.int32))
-
-    nodes_np = np.asarray(packed.nodes)
-    is_leaf = nodes_np[:, 6] >= 0.0
-    skip = nodes_np[:, 7].astype(np.int32)
-    n = nodes_np.shape[0]
-    right = np.full(n, -1, np.int32)
-    internal = ~is_leaf
-    right[internal] = skip[np.clip(np.nonzero(internal)[0] + 1, 0, n - 1)]
-    tree = bvh_ops.FlatBVH(
-        aabb_min=nodes_np[:, 0:3], aabb_max=nodes_np[:, 3:6],
-        first=np.maximum(nodes_np[:, 6], 0).astype(np.int32),
-        count=is_leaf.astype(np.int32), skip=skip, right=right,
-        tri_order=None, levels=None,
-    )
-    maps, root_meta = bvh_ops.build_wide_maps(tree)
-    wide = bvh_ops.assemble_wide(packed.nodes, maps)
-    leaf_ids = jnp.asarray(maps.leaf_ids)
-
+    m_any = np.asarray(mode) > 0
+    ref_any = np.asarray(bvh_ops.intersect_any_p(packed, o, d, t_min, t_max))
     for cull in (0, 1):
-        t, word, u, v = traverse_packets_wide(
-            wide, jnp.asarray(maps.meta), packed.records[leaf_ids],
-            packed.words[leaf_ids], o, d, t_min, t_max,
-            root_meta=root_meta, any_hit="lane", cull_sign=cull,
-            mode=mode, interpret=True,
-        )
-        tri = np.where(np.asarray(word) >= 0,
-                       np.asarray(word) & bvh_ops.ID_MASK, -1)
-        m_any = np.asarray(mode) > 0
-        # Any-hit lanes: occluded iff ANY geometry intersects (never culled).
-        ref_any = np.asarray(
-            bvh_ops.intersect_any_p(packed, o, d, t_min, t_max)
-        )
-        np.testing.assert_array_equal((tri >= 0)[m_any], ref_any[m_any])
-        # Closest lanes: match intersect_closest_p with the cull flag.
-        ref = bvh_ops.intersect_closest_p(packed, o, d, t_min, t_max,
-                                          cull_sign=cull)
-        ref_tri = np.asarray(ref.tri)
-        ref_t = np.asarray(ref.t)
-        mc = ~m_any
-        np.testing.assert_array_equal((tri >= 0)[mc], (ref_tri >= 0)[mc])
-        hit = mc & (ref_tri >= 0)
-        np.testing.assert_allclose(np.asarray(t)[hit], ref_t[hit],
-                                   rtol=1e-4, atol=1e-5)
+        t, word, u, v = traverse(packed, o, d, t_min, t_max, any_hit="lane",
+                                 mode=mode, cull_sign=cull)
+        np.testing.assert_array_equal((np.asarray(word) >= 0)[m_any], ref_any[m_any])
+        ref = bvh_ops.intersect_closest_p(packed, o, d, t_min, t_max, cull_sign=cull)
+        assert_closest_parity(ref, t, word, u, v, sel=~m_any)
 
 
-def test_bf16_conservative_boxes_same_hits():
-    """bf16 node boxes with outward rounding (GLTF_TPU_BF16BOX path): the
-    kernel may over-visit but the closest hits are unchanged (triangle
-    tests stay exact f32)."""
-    from gltf_renderer_tpu.ops.bvh import conservative_bf16_boxes
-    from gltf_renderer_tpu.ops.pallas_trace import traverse_packets_wide
-
-    packed = _random_scene(600, seed=21)
-    o, d, t_min, t_max = _random_rays(4096, seed=22)
-
-    nodes_np = np.asarray(packed.nodes)
-    is_leaf = nodes_np[:, 6] >= 0.0
-    skip = nodes_np[:, 7].astype(np.int32)
-    n = nodes_np.shape[0]
-    right = np.full(n, -1, np.int32)
-    internal = ~is_leaf
-    right[internal] = skip[np.clip(np.nonzero(internal)[0] + 1, 0, n - 1)]
-    tree = bvh_ops.FlatBVH(
-        aabb_min=nodes_np[:, 0:3], aabb_max=nodes_np[:, 3:6],
-        first=np.maximum(nodes_np[:, 6], 0).astype(np.int32),
-        count=is_leaf.astype(np.int32), skip=skip, right=right,
-        tri_order=None, levels=None,
-    )
-    maps, root_meta = bvh_ops.build_wide_maps(tree, width=4)
-    wide = np.asarray(bvh_ops.assemble_wide(packed.nodes, maps))
-    leaf_ids = jnp.asarray(maps.leaf_ids)
-    recs = packed.records[leaf_ids]
-    words = packed.words[leaf_ids]
-
-    out32 = traverse_packets_wide(
-        jnp.asarray(wide), jnp.asarray(maps.meta), recs, words,
-        o, d, t_min, t_max, root_meta=root_meta, interpret=True)
-    # The production form is i32-PACKED pairs (Mosaic cannot dynamically
-    # row-index a bf16 VMEM table) — test exactly what ships.
-    wide16 = jnp.asarray(
-        bvh_ops.pack_bf16_pairs(conservative_bf16_boxes(wide)))
-    assert wide16.dtype == jnp.int32 and wide16.shape[1] == wide.shape[1] // 2
-    out16 = traverse_packets_wide(
-        wide16, jnp.asarray(maps.meta), recs, words,
-        o, d, t_min, t_max, root_meta=root_meta, interpret=True)
-
-    t32, w32 = np.asarray(out32[0]), np.asarray(out32[1])
-    t16, w16 = np.asarray(out16[0]), np.asarray(out16[1])
-    np.testing.assert_array_equal(w32 >= 0, w16 >= 0)
-    hit = w32 >= 0
-    np.testing.assert_allclose(t16[hit], t32[hit], rtol=1e-4, atol=1e-5)
-    # Ties aside, the winning triangle is the same.
-    same = w16 == w32
-    close = np.abs(t16 - t32) <= 1e-4 * np.maximum(np.abs(t32), 1.0)
-    assert np.all(same | (hit & close))
+@pytest.mark.parametrize("n_rays", [1, 255, 257])
+def test_padding_ray_counts(n_rays):
+    """Ray counts that are not a multiple of the block pad with dead lanes
+    and crop back: shapes and results match the reference."""
+    packed = _random_scene(120, seed=51)
+    o, d, t_min, t_max = _random_rays(n_rays, seed=52)
+    t, word, u, v = traverse(packed, o, d, t_min, t_max)
+    assert t.shape == word.shape == u.shape == v.shape == (n_rays,)
+    ref = bvh_ops.intersect_closest_p(packed, o, d, t_min, t_max)
+    assert_closest_parity(ref, t, word, u, v)
 
 
-def test_leaf_hbm_matches_vmem():
-    """HBM-resident leaf mode (per-flush DMA of leaf rows) must return
-    bit-identical results to the all-VMEM kernel in every dispatch mode —
-    the path that lifts the VMEM ceiling for 1M+-tri scenes."""
-    from gltf_renderer_tpu.ops.pallas_trace import traverse_packets_wide
+@pytest.mark.parametrize("block", [32, 64, 256])
+def test_block_sizes_agree(block):
+    """Every block size of the sweep returns the reference's hits."""
+    packed = _random_scene(150, seed=61)
+    o, d, t_min, t_max = _random_rays(300, seed=62)
+    ref = bvh_ops.intersect_closest_p(packed, o, d, t_min, t_max)
+    assert_closest_parity(ref, *traverse(packed, o, d, t_min, t_max, block=block))
 
-    packed = _random_scene(600, seed=31)
-    o, d, t_min, t_max = _random_rays(4096, seed=32)
 
-    nodes_np = np.asarray(packed.nodes)
-    is_leaf = nodes_np[:, 6] >= 0.0
-    skip = nodes_np[:, 7].astype(np.int32)
-    n = nodes_np.shape[0]
-    right = np.full(n, -1, np.int32)
-    internal = ~is_leaf
-    right[internal] = skip[np.clip(np.nonzero(internal)[0] + 1, 0, n - 1)]
-    tree = bvh_ops.FlatBVH(
-        aabb_min=nodes_np[:, 0:3], aabb_max=nodes_np[:, 3:6],
-        first=np.maximum(nodes_np[:, 6], 0).astype(np.int32),
-        count=is_leaf.astype(np.int32), skip=skip, right=right,
-        tri_order=None, levels=None,
-    )
-    maps, root_meta = bvh_ops.build_wide_maps(tree, width=4)
-    wide = jnp.asarray(bvh_ops.assemble_wide(packed.nodes, maps))
-    leaf_ids = jnp.asarray(maps.leaf_ids)
-    recs = packed.records[leaf_ids]
-    words = packed.words[leaf_ids]
-    meta = jnp.asarray(maps.meta)
+def test_dead_and_scalar_tmax_lanes():
+    """Empty intervals (t_min > t_max) miss and report t_max; a scalar t_max
+    broadcasts like the reference's."""
+    packed = _random_scene(80, seed=71)
+    o, d, t_min, _ = _random_rays(64, seed=72)
+    t_min = t_min.at[::2].set(30.0)
+    t, word, _, _ = traverse(packed, o, d, t_min, jnp.float32(20.0))
+    assert (np.asarray(word)[::2] == -1).all()
+    np.testing.assert_array_equal(np.asarray(t)[::2], 20.0)
+    ref = bvh_ops.intersect_closest_p(packed, o, d, t_min, jnp.float32(20.0))
+    np.testing.assert_array_equal(np.asarray(word) >= 0, np.asarray(ref.tri) >= 0)
 
-    rs = np.random.RandomState(33)
-    mode = jnp.asarray((rs.rand(4096) < 0.5).astype(np.int32))
-    cases = [
-        dict(any_hit=False),
-        dict(any_hit=True),
-        dict(any_hit="lane", mode=mode),
-    ]
-    from gltf_renderer_tpu.ops.pallas_trace import (
-        pack_leaf_tiles, pack_leaf_tiles_jnp,
-    )
 
-    tiles = jnp.asarray(pack_leaf_tiles(np.asarray(recs), np.asarray(words)))
-    # The on-device (refit-path) packer must produce the same tiles.
-    np.testing.assert_array_equal(
-        np.asarray(pack_leaf_tiles_jnp(recs, words)), np.asarray(tiles))
-    for kw in cases:
-        ref = traverse_packets_wide(
-            wide, meta, recs, words, o, d, t_min, t_max,
-            root_meta=root_meta, interpret=True, **kw)
-        for hbm in (1, 2):  # flush-synchronous DMA / prefetch pipeline
-            got = traverse_packets_wide(
-                wide, meta, tiles, words, o, d, t_min, t_max,
-                root_meta=root_meta, interpret=True, leaf_hbm=hbm, **kw)
-            if hbm == 2 and kw.get("any_hit") in (True, "lane"):
-                # Prefetch reorders leaf batches; an any-hit lane may retire
-                # on a DIFFERENT (equally valid) occluder — occlusion and
-                # closest-lane results must still match exactly.
-                r_w, g_w = np.asarray(ref[1]), np.asarray(got[1])
-                np.testing.assert_array_equal(r_w >= 0, g_w >= 0)
-                if kw.get("any_hit") == "lane":
-                    closest = np.asarray(kw["mode"]) == 0
-                    np.testing.assert_array_equal(r_w[closest], g_w[closest])
-                    np.testing.assert_array_equal(
-                        np.asarray(ref[0])[closest], np.asarray(got[0])[closest])
-            else:
-                for r_arr, g_arr in zip(ref, got):
-                    np.testing.assert_array_equal(
-                        np.asarray(r_arr), np.asarray(g_arr))
+def test_mode_requires_lane_dispatch():
+    packed = _random_scene(10, seed=1)
+    o, d, t_min, t_max = _random_rays(8, seed=2)
+    with pytest.raises(ValueError):
+        traverse(packed, o, d, t_min, t_max, mode=jnp.zeros(8, jnp.int32))
+    with pytest.raises(ValueError):
+        traverse(packed, o, d, t_min, t_max, any_hit="lane")
+
+
+def test_kernel_matches_xla_after_refit():
+    """Deformed geometry: refit + pack_update tables (the animated-frame
+    path) give the kernel the same hits as the reference."""
+    rs = np.random.RandomState(81)
+    n = 150
+    c = rs.uniform(-1, 1, (n, 3)).astype(np.float32)
+    p = [c + rs.uniform(-0.25, 0.25, (n, 3)).astype(np.float32) for _ in range(3)]
+    tree = bvh_ops.build(*p)
+    order = np.asarray(tree.tri_order)
+    packed = bvh_ops.pack(tree, p[0][order], (p[1] - p[0])[order],
+                          (p[2] - p[0])[order], order.astype(np.int32))
+    # Deform: a twist around z plus a stretch.
+    q = []
+    for v in p:
+        ang = 0.6 * v[:, 2:3]
+        x = v[:, 0:1] * np.cos(ang) - v[:, 1:2] * np.sin(ang)
+        y = v[:, 0:1] * np.sin(ang) + v[:, 1:2] * np.cos(ang)
+        q.append(np.concatenate([1.3 * x, y, v[:, 2:3]], 1).astype(np.float32))
+    q0, q1, q2 = (jnp.asarray(v) for v in q)
+    refitted = bvh_ops.refit(tree, q0, q1, q2)
+    packed2 = bvh_ops.pack_update(packed, tree, q0[order], (q1 - q0)[order],
+                                  (q2 - q0)[order], refitted=refitted)
+    o, d, t_min, t_max = _random_rays(256, seed=82, coherent=True)
+    ref = bvh_ops.intersect_closest_p(packed2, o, d, t_min, t_max)
+    assert (np.asarray(ref.tri) >= 0).sum() > 20
+    assert_closest_parity(ref, *traverse(packed2, o, d, t_min, t_max))
+
+
+def test_kernel_inside_shard_map():
+    """The sharded renders call the kernel inside shard_map (with
+    check_vma off, as parallel/sharding does): each device traverses its
+    slice of the rays, with the same hits."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    packed = _random_scene(120, seed=61)
+    o, d, t_min, t_max = _random_rays(512, seed=62)
+    mesh = Mesh(np.asarray(jax.devices()[:4]), ("rays",))
+    fn = jax.shard_map(lambda pk, *r: traverse(pk, *r), mesh=mesh,
+                       in_specs=(P(),) + (P("rays"),) * 4, out_specs=P("rays"),
+                       check_vma=False)
+    got = jax.jit(fn)(packed, o, d, t_min, t_max)
+    ref = bvh_ops.intersect_closest_p(packed, o, d, t_min, t_max)
+    assert_closest_parity(ref, *got)
+
+
+@pytest.mark.parametrize("platform,route", [("cpu", "xla"), ("gpu", "kernel"),
+                                            ("rocm", "xla")])
+def test_route_by_platform(platform, route):
+    assert pt.traversal_route(platform) == route
+
+
+def test_gpu_route_runs_kernel_compiled(monkeypatch):
+    """On the GPU the kernel route calls the kernel with interpret=False —
+    never the interpreter and never the XLA reference."""
+    calls = []
+
+    def fake_traverse(packed, origin, direction, t_min, t_max, **kw):
+        calls.append(kw)
+        r = origin.shape[0]
+        return (jnp.broadcast_to(t_max, (r,)), jnp.full(r, -1, jnp.int32),
+                jnp.zeros(r), jnp.zeros(r))
+
+    def no_xla(*a, **kw):
+        raise AssertionError("kernel route must not call the XLA reference")
+
+    class FakeDevice:
+        platform = "gpu"
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [FakeDevice()])
+    monkeypatch.setattr(triton_trace, "traverse", fake_traverse)
+    monkeypatch.setattr(bvh_ops, "intersect_closest_p", no_xla)
+    meta = pt.PTMeta(num_lights=0, has_masked=False, has_env=False,
+                     traversal=pt.traversal_route())
+    assert meta.traversal == "kernel"
+    packed = _random_scene(10, seed=3)
+    scene = pt.PTScene(world=None, bvh=None, packed=packed, materials=None,
+                       textures=None, lights=None, env=None, sheen_table=None)
+    o, d, t_min, t_max = _random_rays(8, seed=4)
+    pt.closest_hit(scene, meta, o, d, t_min, t_max)
+    assert calls and calls[0]["interpret"] is False
+
+
+def test_cpu_route_is_xla_reference(monkeypatch):
+    """make_pt_scene on the CPU selects the XLA route, and closest_hit then
+    never touches the kernel."""
+    from tests.scenes import write_box_gltf
+    from gltf_renderer.scene import flatten
+    from gltf_renderer.scene.gltf import load_gltf
+    import tempfile
+    import os
+
+    path = os.path.join(tempfile.mkdtemp(), "box.gltf")
+    write_box_gltf(path)
+    scene = load_gltf(path)
+    tf = flatten.compute_global_transforms(scene)
+    plan = flatten.build_instance_plan(scene)
+    world = flatten.build_world_geometry(
+        jax.tree.map(jnp.asarray, scene.pools), plan, jnp.asarray(tf),
+        jnp.asarray(flatten.normal_transforms(tf)),
+        flatten.plan_tri_flags(plan, scene.primitives))
+    ptscene, meta = pt.make_pt_scene(
+        world, scene.materials, scene.textures, flatten.gather_lights(scene, tf))
+    assert meta.traversal == "xla"
+
+    def no_kernel(*a, **kw):
+        raise AssertionError("the XLA route must not call the kernel")
+
+    monkeypatch.setattr(triton_trace, "traverse", no_kernel)
+    o, d, t_min, t_max = _random_rays(16, seed=9)
+    hit = pt.closest_hit(ptscene, meta, o, d, t_min, t_max)
+    assert hit.tri.shape == (16,)
+
+
+@pytest.mark.gpu
+def test_kernel_compiled_on_gpu_matches_xla(gpu):
+    """The compiled kernel (no interpreter) against the reference, on the
+    card. chip_smoke.py runs the full-size version of this comparison."""
+    packed = _random_scene(2000, seed=91)
+    o, d, t_min, t_max = _random_rays(4096, seed=92)
+    ref = bvh_ops.intersect_closest_p(packed, o, d, t_min, t_max)
+    assert_closest_parity(ref, *triton_trace.traverse(packed, o, d, t_min, t_max))

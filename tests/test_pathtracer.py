@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gltf_renderer_tpu.render import pathtracer as pt
-from gltf_renderer_tpu.render import settings as S
-from gltf_renderer_tpu.scene import flatten
-from gltf_renderer_tpu.scene.gltf import load_gltf
-from gltf_renderer_tpu.camera import Camera, look_at
+from gltf_renderer.render import pathtracer as pt
+from gltf_renderer.render import settings as S
+from gltf_renderer.scene import flatten
+from gltf_renderer.scene.gltf import load_gltf
+from gltf_renderer.camera import Camera, look_at
 from tests.scenes import write_box_gltf
 
 
@@ -145,7 +145,7 @@ def test_pt_spp_chunk_boundary(box_setup):
 
 
 def test_proxy_occlusion_matches_brute_force():
-    """_proxy_occlusion's MXU bilinear formulation == numpy Moller-Trumbore
+    """_proxy_occlusion's bilinear matmul formulation == numpy Moller-Trumbore
     (hits only where MT clearly hits; margin misses allowed, false hits not)."""
     rs = np.random.RandomState(11)
     k, r = 16, 512
@@ -290,7 +290,7 @@ def test_proxy_occlusion_no_false_hits_far_from_origin(offset):
 
 
 def test_shadow_prepass_image_identical(tmp_path, monkeypatch):
-    """GLTF_TPU_SHADOWPRE must not change the rendered image (conservative
+    """GLTF_SHADOWPRE must not change the rendered image (conservative
     prepass): box scene (opaque walls, punctual light + env NEE, 2 bounces)
     rendered with and without the knob, compared exactly."""
     path = write_box_gltf(str(tmp_path / "box.gltf"))
@@ -300,7 +300,7 @@ def test_shadow_prepass_image_identical(tmp_path, monkeypatch):
     lts = jax.tree.map(jnp.asarray, lights)
 
     ptscene_off, meta_off = pt.make_pt_scene(world, mats, texs, lts)
-    monkeypatch.setenv("GLTF_TPU_SHADOWPRE", "8")
+    monkeypatch.setenv("GLTF_SHADOWPRE", "8")
     ptscene_on, meta_on = pt.make_pt_scene(world, mats, texs, lts)
     assert meta_on.shadow_prepass and not meta_off.shadow_prepass
     assert int((np.asarray(ptscene_on.occluder_idx) >= 0).sum()) > 0
@@ -323,7 +323,7 @@ def test_shadow_prepass_masked_scene_identical(tmp_path, monkeypatch):
     one-sided exception, documented in trace_shadow: >16 stacked alpha
     surfaces in front of a certain opaque occluder — the truncated loop
     keeps trans>0, the prepass returns the physically correct 0.)"""
-    from gltf_renderer_tpu.scene.procedural import write_foliage_gltf
+    from gltf_renderer.scene.procedural import write_foliage_gltf
 
     path = write_foliage_gltf(str(tmp_path / "foliage.gltf"), tex_size=16)
     scene, world, lights = _load_world(path)
@@ -331,7 +331,7 @@ def test_shadow_prepass_masked_scene_identical(tmp_path, monkeypatch):
     texs = jax.tree.map(jnp.asarray, scene.textures)
     lts = jax.tree.map(jnp.asarray, lights)
     ptscene_off, meta_off = pt.make_pt_scene(world, mats, texs, lts)
-    monkeypatch.setenv("GLTF_TPU_SHADOWPRE", "8")
+    monkeypatch.setenv("GLTF_SHADOWPRE", "8")
     ptscene_on, meta_on = pt.make_pt_scene(world, mats, texs, lts)
     assert meta_off.has_masked and meta_on.shadow_prepass
 
@@ -442,7 +442,7 @@ def test_pt_directional_closed_form(tmp_path):
     cannot move the expected value. Pins camera rays, NEE (GetLightRay,
     Lights.hlsli:26-61), the diffuse BSDF*cos/pdf chain, and accumulation
     as one closed form."""
-    from gltf_renderer_tpu.scene.procedural import write_plane_light_gltf
+    from gltf_renderer.scene.procedural import write_plane_light_gltf
 
     albedo = np.asarray([0.8, 0.6, 0.4])
     intensity = 3.0
@@ -484,7 +484,7 @@ def test_pt_point_light_closed_form(tmp_path):
     world (0,0,8), expected radiance albedo/pi * I * h/r^3 computed from
     the analytic unjittered ray-plane intersection per pixel. The light is
     far enough that sub-pixel jitter moves the value < 0.5%."""
-    from gltf_renderer_tpu.scene.procedural import write_plane_light_gltf
+    from gltf_renderer.scene.procedural import write_plane_light_gltf
 
     albedo = np.asarray([0.8, 0.6, 0.4])
     intensity = 40.0

@@ -1,8 +1,7 @@
 """Tests for the gather-count optimization structures (round 2 perf work).
 
-Covers the 16-bucket counting sort that replaces argsort for octant-ordered
-packet dispatch, the sorted-dispatch scatter/gather roundtrip in
-_packet_closest, and the Walker alias table that replaces the hierarchical
+Covers the octant-ordered dispatch key, the sorted-dispatch scatter/gather
+roundtrip in _kernel_closest, and the Walker alias table that replaces the hierarchical
 importance-map descent (same texel distribution + pdf, one gather).
 """
 
@@ -10,9 +9,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gltf_renderer_tpu.ops import bvh as bvh_ops
-from gltf_renderer_tpu.ops import sampling
-from gltf_renderer_tpu.render import pathtracer as pt
+from gltf_renderer.ops import bvh as bvh_ops
+from gltf_renderer.ops import sampling
+from gltf_renderer.render import pathtracer as pt
 
 
 def _keys(direction, t_min, t_max):
@@ -50,8 +49,8 @@ def test_octant_positions_groups_by_key():
 def test_packet_closest_sorted_roundtrip(monkeypatch):
     """sort_rays=True must return identical hits to sort_rays=False.
 
-    The traversal is stubbed with the XLA ground truth so this runs on CPU and
-    isolates the scatter/gather reorder logic."""
+    The kernel is stubbed with the XLA ground truth so this isolates the
+    scatter/gather reorder logic."""
     rs = np.random.RandomState(3)
     n_tris = 64
     c = rs.uniform(-1, 1, (n_tris, 3)).astype(np.float32)
@@ -66,28 +65,28 @@ def test_packet_closest_sorted_roundtrip(monkeypatch):
     )
     scene = pt.PTScene(
         world=None, bvh=tree, packed=packed, materials=None, textures=None,
-        lights=None, env=None, sheen_table=None, wide_nodes=None,
-        wide_maps=bvh_ops.WideMaps(child_src=None, meta=None),
+        lights=None, env=None, sheen_table=None,
     )
-    meta = pt.PTMeta(num_lights=0, has_masked=False, has_env=False, wide_root=0)
+    meta = pt.PTMeta(num_lights=0, has_masked=False, has_env=False,
+                     traversal="kernel")
 
-    from gltf_renderer_tpu.ops import pallas_trace
+    from gltf_renderer.ops import triton_trace
 
-    def fake_traverse(wide_nodes, wide_meta, records, words, origin, direction,
-                      t_min, t_max, **kw):
-        hit = bvh_ops.intersect_closest_p(packed, origin, direction, t_min, t_max)
+    def fake_traverse(packed_, origin, direction, t_min, t_max, **kw):
+        hit = bvh_ops.intersect_closest_p(packed_, origin, direction, t_min, t_max)
         word = jnp.where(hit.tri >= 0, hit.tri, -1)
         return hit.t, word, hit.u, hit.v
 
-    monkeypatch.setattr(pallas_trace, "traverse_packets_wide", fake_traverse)
+    monkeypatch.setattr(triton_trace, "traverse", fake_traverse)
+    monkeypatch.setattr(pt, "_no_sort", lambda: False)
 
     n = 512
     o = jnp.asarray(rs.uniform(-3, 3, (n, 3)).astype(np.float32))
     d = jnp.asarray(rs.uniform(-1, 1, (n, 3)).astype(np.float32))
     t_min = jnp.zeros(n)
     t_max = jnp.full(n, 20.0)
-    plain = pt._packet_closest(scene, meta, o, d, t_min, t_max, sort_rays=False)
-    srt = pt._packet_closest(scene, meta, o, d, t_min, t_max, sort_rays=True)
+    plain = pt._kernel_closest(scene, meta, o, d, t_min, t_max, sort_rays=False)
+    srt = pt._kernel_closest(scene, meta, o, d, t_min, t_max, sort_rays=True)
     np.testing.assert_array_equal(np.asarray(srt.tri), np.asarray(plain.tri))
     np.testing.assert_allclose(np.asarray(srt.t), np.asarray(plain.t))
     np.testing.assert_allclose(np.asarray(srt.u), np.asarray(plain.u))
@@ -172,11 +171,11 @@ def test_alias_matches_descent_distribution():
 
 
 def test_bf16_attr_rows_match_f32(monkeypatch):
-    """GLTF_TPU_BF16ROWS=1 probe: the bf16 hit-attribute table returns the
+    """GLTF_BF16ROWS=1 probe: the bf16 hit-attribute table returns the
     same materials/flags exactly and attributes to bf16 precision."""
-    from gltf_renderer_tpu.scene.procedural import write_materials_gltf
-    from gltf_renderer_tpu.scene.gltf import load_gltf
-    from gltf_renderer_tpu.scene import flatten as F
+    from gltf_renderer.scene.procedural import write_materials_gltf
+    from gltf_renderer.scene.gltf import load_gltf
+    from gltf_renderer.scene import flatten as F
 
     path = write_materials_gltf("/tmp/bf16_zoo.gltf")
     scene = load_gltf(path)
@@ -186,7 +185,7 @@ def test_bf16_attr_rows_match_f32(monkeypatch):
     flags = F.plan_tri_flags(plan, scene.primitives)
 
     world32 = F.build_world_geometry(scene.pools, plan, tf, tf, flags)
-    monkeypatch.setenv("GLTF_TPU_BF16ROWS", "1")
+    monkeypatch.setenv("GLTF_BF16ROWS", "1")
     world16 = F.build_world_geometry(scene.pools, plan, tf, tf, flags)
     assert world16.tri_attr_rows.dtype == jnp.bfloat16
 
@@ -219,12 +218,12 @@ def test_bf16_attr_rows_match_f32(monkeypatch):
 
 
 def test_bf16_attr_rows_auto_gate_and_wide_ids(monkeypatch):
-    """GLTF_TPU_BF16ROWS=auto (default): f32 rows below _BF16ROWS_MIN_TRIS,
-    bf16 above (the measured v5e crossover). Material ids beyond 255 survive
+    """GLTF_BF16ROWS=auto (default): f32 rows below _BF16ROWS_MIN_TRIS,
+    bf16 above. Material ids beyond 255 survive
     the hi/lo byte split exactly (a plain bf16 int is only exact to 256)."""
-    from gltf_renderer_tpu.scene.procedural import write_materials_gltf
-    from gltf_renderer_tpu.scene.gltf import load_gltf
-    from gltf_renderer_tpu.scene import flatten as F
+    from gltf_renderer.scene.procedural import write_materials_gltf
+    from gltf_renderer.scene.gltf import load_gltf
+    from gltf_renderer.scene import flatten as F
 
     path = write_materials_gltf("/tmp/bf16_zoo2.gltf")
     scene = load_gltf(path)
@@ -233,7 +232,7 @@ def test_bf16_attr_rows_auto_gate_and_wide_ids(monkeypatch):
                              (len(scene.nodes), 1, 1)))
     flags = F.plan_tri_flags(plan, scene.primitives)
 
-    monkeypatch.delenv("GLTF_TPU_BF16ROWS", raising=False)
+    monkeypatch.delenv("GLTF_BF16ROWS", raising=False)
     w_small = F.build_world_geometry(scene.pools, plan, tf, tf, flags)
     assert w_small.tri_attr_rows.dtype == jnp.float32  # under the threshold
 

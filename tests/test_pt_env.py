@@ -10,12 +10,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gltf_renderer_tpu.env import environment as E
-from gltf_renderer_tpu.render import pathtracer as pt
-from gltf_renderer_tpu.render import settings as S
-from gltf_renderer_tpu.scene import flatten
-from gltf_renderer_tpu.scene.gltf import load_gltf
-from gltf_renderer_tpu.camera import Camera, look_at
+from gltf_renderer.env import environment as E
+from gltf_renderer.render import pathtracer as pt
+from gltf_renderer.render import settings as S
+from gltf_renderer.scene import flatten
+from gltf_renderer.scene.gltf import load_gltf
+from gltf_renderer.camera import Camera, look_at
 from tests.scenes import write_box_gltf
 from tests.test_env import _test_equirect
 

@@ -3,13 +3,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gltf_renderer_tpu.env import environment as E
-from gltf_renderer_tpu.render import pathtracer as pt
-from gltf_renderer_tpu.render import rasterizer
-from gltf_renderer_tpu.render import settings as S
-from gltf_renderer_tpu.scene import flatten
-from gltf_renderer_tpu.scene.gltf import load_gltf
-from gltf_renderer_tpu.camera import Camera, look_at
+from gltf_renderer.env import environment as E
+from gltf_renderer.render import pathtracer as pt
+from gltf_renderer.render import rasterizer
+from gltf_renderer.render import settings as S
+from gltf_renderer.scene import flatten
+from gltf_renderer.scene.gltf import load_gltf
+from gltf_renderer.camera import Camera, look_at
 from tests.scenes import write_box_gltf
 from tests.test_env import _test_equirect
 
@@ -113,7 +113,7 @@ def test_raster_alpha_blend(tmp_path):
 def test_raster_motion_vectors(tmp_path):
     """Camera translation produces nonzero motion vectors on the box."""
     import jax.numpy as jnp
-    from gltf_renderer_tpu.render.settings import RenderSettings, PathTracerParams
+    from gltf_renderer.render.settings import RenderSettings, PathTracerParams
 
     path = write_box_gltf(str(tmp_path / "box.gltf"))
     ptscene, meta, cam = _setup(path, env=False)

@@ -6,8 +6,8 @@ two-target morphs, multi-UV — per docs/PARITY.md "BASELINE assets")."""
 import numpy as np
 import pytest
 
-from gltf_renderer_tpu.scene.gltf import load_gltf
-from gltf_renderer_tpu.scene.procedural import (
+from gltf_renderer.scene.gltf import load_gltf
+from gltf_renderer.scene.procedural import (
     box_mesh,
     write_box_official_layout_gltf,
     write_morph_cube_official_layout_gltf,
@@ -33,7 +33,7 @@ def test_box_official_layout_interleaved(tmp_path):
         base[1], [0.8, 0.0, 0.0, 1.0], atol=1e-6
     )
     # Root matrix node: applied in the global transforms.
-    from gltf_renderer_tpu.scene import flatten
+    from gltf_renderer.scene import flatten
 
     tf = flatten.compute_global_transforms(scene)
     mesh_node = next(i for i, nd in enumerate(scene.nodes) if nd.mesh >= 0)
@@ -44,9 +44,9 @@ def test_box_official_layout_interleaved(tmp_path):
 
 
 def test_box_official_layout_renders(tmp_path):
-    from gltf_renderer_tpu.camera import look_at
-    from gltf_renderer_tpu.render import settings as S
-    from gltf_renderer_tpu.render.renderer import Renderer
+    from gltf_renderer.camera import look_at
+    from gltf_renderer.render import settings as S
+    from gltf_renderer.render.renderer import Renderer
 
     path = write_box_official_layout_gltf(str(tmp_path / "box_official.gltf"))
     r = Renderer(S.RenderSettings(width=48, height=32,
@@ -65,7 +65,7 @@ def test_box_official_layout_renders(tmp_path):
 def test_morph_cube_official_layout(tmp_path):
     """Two named morph targets + weights animation (AnimatedMorphCube
     structure): both weights drive deformation per tick."""
-    from gltf_renderer_tpu.anim.animation import animate
+    from gltf_renderer.anim.animation import animate
 
     path = write_morph_cube_official_layout_gltf(str(tmp_path / "amc.gltf"))
     scene = load_gltf(path)
@@ -94,6 +94,6 @@ def test_multiuv_color0(tmp_path):
     uv1 = np.asarray(scene.pools.uv1)
     assert not np.allclose(uv0[: 24], uv1[: 24])
     # Occlusion texture is bound to UV set 1.
-    from gltf_renderer_tpu.scene import types as T
+    from gltf_renderer.scene import types as T
 
     assert int(np.asarray(scene.materials.tex_uvset)[-1, T.TEX_OCCLUSION]) == 1

@@ -3,9 +3,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from gltf_renderer_tpu.render.renderer import Renderer
-from gltf_renderer_tpu.render import settings as S
-from gltf_renderer_tpu.camera import look_at
+from gltf_renderer.render.renderer import Renderer
+from gltf_renderer.render import settings as S
+from gltf_renderer.camera import look_at
 from tests.scenes import write_box_gltf, write_skinned_gltf, write_morph_gltf
 from tests.test_env import _test_equirect
 
@@ -108,7 +108,7 @@ def test_checkpoint_resume(tmp_path):
 
 def test_free_controller():
     """FreeController fly-cam: moving forward shrinks distance to target."""
-    from gltf_renderer_tpu.camera import FreeController
+    from gltf_renderer.camera import FreeController
 
     fc = FreeController(position=np.asarray([0.0, -5.0, 0.0], np.float32))
     w2v0 = fc.world_to_view()
@@ -209,8 +209,8 @@ def test_multi_scene_document_select(tmp_path):
     doc["scenes"].append({"nodes": [len(doc["nodes"]) - 1]})
     json.dump(doc, open(path, "w"))
 
-    from gltf_renderer_tpu.render.renderer import Renderer
-    from gltf_renderer_tpu.render.settings import RenderSettings
+    from gltf_renderer.render.renderer import Renderer
+    from gltf_renderer.render.settings import RenderSettings
 
     r = Renderer(RenderSettings(width=48, height=32))
     r.load_scene(path)

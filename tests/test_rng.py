@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gltf_renderer_tpu.ops import rng
+from gltf_renderer.ops import rng
 
 M32 = 0xFFFFFFFF
 

@@ -1,6 +1,6 @@
 """PTScene disk-cache invariants (utils/scene_cache.py).
 
-The cache is only EXERCISED end-to-end on a TPU default device
+The cache is only EXERCISED end-to-end on an accelerator default device
 (make_pt_scene's run-on-CPU branch); these tests pin the key/value contract
 on any backend: content-addressed keys, knob + code sensitivity, atomic
 store/load roundtrip of a nested NamedTuple pytree, corrupt-entry recovery.
@@ -12,7 +12,7 @@ from collections import namedtuple
 import numpy as np
 import pytest
 
-from gltf_renderer_tpu.utils import scene_cache
+from gltf_renderer.utils import scene_cache
 
 Pair = namedtuple("Pair", "a b")
 
@@ -20,7 +20,7 @@ Pair = namedtuple("Pair", "a b")
 @pytest.fixture
 def cache_dir(tmp_path, monkeypatch):
     d = str(tmp_path / "ptscene")
-    monkeypatch.setenv("GLTF_TPU_SCENE_CACHE", d)
+    monkeypatch.setenv("GLTF_SCENE_CACHE", d)
     return d
 
 
@@ -39,11 +39,11 @@ def test_key_is_content_addressed(cache_dir):
 def test_key_depends_on_build_knobs(cache_dir, monkeypatch):
     x = Pair(np.zeros(4, np.float32), None)
     k0 = scene_cache.compute_key(x)
-    monkeypatch.setenv("GLTF_TPU_QUAD", "0")
+    monkeypatch.setenv("GLTF_QUAD", "0")
     assert scene_cache.compute_key(x) != k0
     # ... but NOT on the cache-location knobs themselves
-    monkeypatch.delenv("GLTF_TPU_QUAD")
-    monkeypatch.setenv("GLTF_TPU_COMPILE_CACHE", "/elsewhere")
+    monkeypatch.delenv("GLTF_QUAD")
+    monkeypatch.setenv("GLTF_SCENE_CACHE", "/elsewhere")
     assert scene_cache.compute_key(x) == k0
 
 
@@ -70,7 +70,7 @@ def test_corrupt_entry_is_discarded(cache_dir):
 
 
 def test_disabled_cache(monkeypatch):
-    monkeypatch.setenv("GLTF_TPU_SCENE_CACHE", "off")
+    monkeypatch.setenv("GLTF_SCENE_CACHE", "off")
     assert scene_cache.cache_dir() is None
     scene_cache.store("k", {"x": 1})  # must be a no-op, not an error
     assert scene_cache.load("k") is None

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gltf_renderer_tpu.parallel import sharding
-from gltf_renderer_tpu.render import pathtracer as pt
-from gltf_renderer_tpu.render import settings as S
-from gltf_renderer_tpu.scene import flatten
-from gltf_renderer_tpu.scene.gltf import load_gltf
-from gltf_renderer_tpu.camera import Camera, look_at
+from gltf_renderer.parallel import sharding
+from gltf_renderer.render import pathtracer as pt
+from gltf_renderer.render import settings as S
+from gltf_renderer.scene import flatten
+from gltf_renderer.scene.gltf import load_gltf
+from gltf_renderer.camera import Camera, look_at
 from tests.scenes import write_box_gltf
 
 
@@ -80,9 +80,9 @@ def test_raster_sharded_matches_single(tmp_path_factory):
     """Raster backend multi-chip path: one sharded DrawScene frame (opaque +
     background + transmission backdrop all_gather + blend layers) must match
     the single-device frame bit-for-bit-close on the 8-device CPU mesh."""
-    from gltf_renderer_tpu.env.environment import build_environment
-    from gltf_renderer_tpu.render import rasterizer
-    from gltf_renderer_tpu.scene.procedural import write_materials_gltf
+    from gltf_renderer.env.environment import build_environment
+    from gltf_renderer.render import rasterizer
+    from gltf_renderer.scene.procedural import write_materials_gltf
     from tests.test_env import _test_equirect
 
     path = str(tmp_path_factory.mktemp("scenes") / "zoo.gltf")
@@ -127,7 +127,7 @@ def test_distributed_single_process_and_replicate(setup):
     """Multi-host story (SURVEY §2.3): initialize() is a no-op single-
     process; replicate() produces globally-replicated arrays that feed
     render_sharded unchanged."""
-    from gltf_renderer_tpu.parallel import distributed
+    from gltf_renderer.parallel import distributed
 
     idx, count = distributed.initialize()
     assert (idx, count) == (0, 1)
@@ -139,7 +139,7 @@ def test_distributed_single_process_and_replicate(setup):
     res = (32, 32)
     mesh = sharding.make_mesh(n_sample=1, n_tile=8)
     scene_g = distributed.replicate(ptscene, mesh)
-    leaf = scene_g.wide_nodes
+    leaf = scene_g.packed.nodes
     assert leaf.sharding.is_fully_replicated
     single = np.asarray(
         pt.trace(ptscene, meta, settings, params, c2w, res, jnp.uint32(3))

@@ -17,7 +17,6 @@ import tempfile
 
 import numpy as np
 import pytest
-from PIL import Image
 
 
 @pytest.fixture(autouse=True)
@@ -45,7 +44,8 @@ def _no_persistent_cache():
     jax.config.update("jax_enable_compilation_cache", old)
     cc.reset_cache()
 
-from gltf_renderer_tpu.utils.ssim import ssim
+from gltf_renderer.utils.png import load_png
+from gltf_renderer.utils.ssim import ssim
 from tests.golden_configs import CONFIGS, GOLDEN_DIR
 
 
@@ -55,7 +55,7 @@ def test_golden_ssim(name):
     assert os.path.exists(golden_path), (
         f"missing golden {golden_path}; run tools/make_goldens.py {name}"
     )
-    golden = np.asarray(Image.open(golden_path))
+    golden = load_png(golden_path)
     with tempfile.TemporaryDirectory() as tmp:
         img = CONFIGS[name](tmp)
     s = ssim(img, golden)
@@ -69,13 +69,13 @@ def test_furnace_raster_vs_converged_pt():
     import jax
     import jax.numpy as jnp
 
-    from gltf_renderer_tpu.env import environment as E
-    from gltf_renderer_tpu.render import pathtracer as pt
-    from gltf_renderer_tpu.render import rasterizer
-    from gltf_renderer_tpu.render import settings as S
-    from gltf_renderer_tpu.scene import flatten
-    from gltf_renderer_tpu.scene.gltf import load_gltf
-    from gltf_renderer_tpu.camera import Camera, look_at
+    from gltf_renderer.env import environment as E
+    from gltf_renderer.render import pathtracer as pt
+    from gltf_renderer.render import rasterizer
+    from gltf_renderer.render import settings as S
+    from gltf_renderer.scene import flatten
+    from gltf_renderer.scene.gltf import load_gltf
+    from gltf_renderer.camera import Camera, look_at
     from tests.scenes import write_box_gltf
 
     with tempfile.TemporaryDirectory() as tmp:

@@ -12,12 +12,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from gltf_renderer_tpu.ops.material import (
+from gltf_renderer.ops.material import (
     compact_material_rows, sample_slots_fused, MATERIAL_ROW_FACTORS,
     MATERIAL_SLOT_STRIDE,
 )
-from gltf_renderer_tpu.ops.texture import build_atlas_mips, decode_atlas_linear
-from gltf_renderer_tpu.scene import types as T
+from gltf_renderer.ops.texture import build_atlas_mips, decode_atlas_linear
+from gltf_renderer.scene import types as T
 
 
 def _one_texture_table(img_u8, wrap=T.WRAP_REPEAT, srgb=0):
@@ -126,7 +126,7 @@ def test_trilinear_is_between_levels():
 
 @pytest.mark.parametrize("wrap", [T.WRAP_REPEAT, T.WRAP_CLAMP])
 def test_quad_mips_bit_match_four_corner(wrap):
-    """GLTF_TPU_QUADMIPS path (2 gather rows/sample) must reproduce the
+    """GLTF_QUADMIPS path (2 gather rows/sample) must reproduce the
     8-row trilinear path exactly — the baked neighbors ARE the wrapped
     corners, and on CLAMP collapse the corner-select picks the center."""
     img = (np.random.RandomState(7).rand(13, 9, 4) * 255).astype(np.uint8)

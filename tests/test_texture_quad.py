@@ -5,9 +5,9 @@ including uv outside [0, 1] (KHR_texture_transform can push uv anywhere)."""
 import numpy as np
 import jax.numpy as jnp
 
-from gltf_renderer_tpu.ops.material import sample_slots_fused
-from gltf_renderer_tpu.ops.texture import build_atlas_quad, decode_atlas_linear
-from gltf_renderer_tpu.scene import types as T
+from gltf_renderer.ops.material import sample_slots_fused
+from gltf_renderer.ops.texture import build_atlas_quad, decode_atlas_linear
+from gltf_renderer.scene import types as T
 
 
 def _table(wrap_s, wrap_t, nearest=0):
@@ -36,14 +36,14 @@ def _table(wrap_s, wrap_t, nearest=0):
 def _mat_row(n, tex_ids):
     """Minimal compact material rows: a single slot whose 7 addressing cols
     + 9 joined metadata cols follow MATERIAL_ROW_FACTORS."""
-    from gltf_renderer_tpu.ops.material import MATERIAL_ROW_FACTORS
-    from gltf_renderer_tpu.scene.types import MATERIAL_ROW_FACTORS as _  # noqa: F401
+    from gltf_renderer.ops.material import MATERIAL_ROW_FACTORS
+    from gltf_renderer.scene.types import MATERIAL_ROW_FACTORS as _  # noqa: F401
 
     return MATERIAL_ROW_FACTORS
 
 
 def test_quad_atlas_matches_four_corner():
-    from gltf_renderer_tpu.scene.types import WRAP_CLAMP, WRAP_REPEAT
+    from gltf_renderer.scene.types import WRAP_CLAMP, WRAP_REPEAT
 
     for wrap_s, wrap_t in [(WRAP_REPEAT, WRAP_REPEAT), (WRAP_CLAMP, WRAP_REPEAT),
                            (WRAP_CLAMP, WRAP_CLAMP)]:
@@ -54,7 +54,7 @@ def test_quad_atlas_matches_four_corner():
 
             # Build a 1-material compact row with two used slots pointing at
             # the two textures (metadata joined like compact_material_rows).
-            from gltf_renderer_tpu.ops import material as M
+            from gltf_renderer.ops import material as M
 
             k = 2
             row = np.zeros((1, M.MATERIAL_ROW_FACTORS + M.COMPACT_SLOT_STRIDE * k),
@@ -101,7 +101,7 @@ def test_quad_atlas_matches_four_corner():
 
 
 def test_quad_atlas_skips_mirror():
-    from gltf_renderer_tpu.scene.types import WRAP_MIRROR, WRAP_REPEAT
+    from gltf_renderer.scene.types import WRAP_MIRROR, WRAP_REPEAT
 
     tex = decode_atlas_linear(_table(WRAP_MIRROR, WRAP_REPEAT))
     assert build_atlas_quad(tex).atlas_quad is None

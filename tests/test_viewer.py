@@ -11,7 +11,7 @@ from tests.scenes import write_box_gltf
 
 
 def test_viewer_serves_frames_and_input(tmp_path):
-    from gltf_renderer_tpu.app import viewer
+    from gltf_renderer.app import viewer
 
     path = str(tmp_path / "box.gltf")
     write_box_gltf(path)
@@ -88,7 +88,7 @@ def test_viewer_fly_camera(tmp_path):
     """FreeController reachable from the app shell (CameraController.h:
     124-243): switch to fly mode (seeded seamlessly at the orbit eye),
     drive WASD key + look events over HTTP, observe the camera move."""
-    from gltf_renderer_tpu.app import viewer
+    from gltf_renderer.app import viewer
 
     path = str(tmp_path / "box.gltf")
     write_box_gltf(path)
@@ -154,7 +154,7 @@ def test_viewer_graphics_tab(tmp_path):
     """Graphics-tab parity (Main.cpp:224-340): drive a debug-channel change
     and a bounce change end-to-end over HTTP and observe them land in the
     renderer settings + a fresh frame."""
-    from gltf_renderer_tpu.app import viewer
+    from gltf_renderer.app import viewer
 
     path = str(tmp_path / "box.gltf")
     write_box_gltf(path)
@@ -233,7 +233,7 @@ def test_viewer_graphics_tab(tmp_path):
 def test_viewer_drag_drop_upload(tmp_path):
     """Drag-drop parity (Main.cpp:367-406): POST /upload with raw file bytes
     replaces the scene (.gltf/.glb) and rejects unsupported extensions."""
-    from gltf_renderer_tpu.app import viewer
+    from gltf_renderer.app import viewer
     path = str(tmp_path / "box.gltf")
     write_box_gltf(path)
     server, state, thread = viewer.serve(
@@ -290,8 +290,8 @@ def test_viewer_drop_hdr_swaps_environment(tmp_path):
     import jax
     from jax._src import compilation_cache as cc
 
-    from gltf_renderer_tpu.app import viewer
-    from gltf_renderer_tpu.env.hdr_io import write_hdr
+    from gltf_renderer.app import viewer
+    from gltf_renderer.env.hdr_io import write_hdr
 
     # The env build's big XLA:CPU graphs hit the persistent-cache segfault
     # inside long-lived pytest processes (see test_ssim_baseline's fixture);
@@ -341,7 +341,7 @@ def test_viewer_drop_hdr_swaps_environment(tmp_path):
 def test_viewer_sharded(tmp_path):
     """shard="auto" on the 8-device CPU mesh: the viewer's render thread
     runs the sharded step functions and still serves valid frames."""
-    from gltf_renderer_tpu.app import viewer
+    from gltf_renderer.app import viewer
 
     path = str(tmp_path / "box.gltf")
     write_box_gltf(path)

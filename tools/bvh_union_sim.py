@@ -1,54 +1,59 @@
-#!/usr/bin/env python
-"""Offline BVH-quality metric: per-packet UNION node visits.
+"""Offline BVH-quality metric: union node visits of a ray group.
 
-The packet kernel's cost is proportional to the number of wide nodes the
-PACKET visits (a node is entered when ANY live lane's ray hits its box —
-docs/PERFORMANCE.md: incoherent packets ~1267 steps at ~98% lane waste).
-That union count is computable exactly in numpy, so BVH-construction
-changes can be evaluated WITHOUT the TPU:
-
-    python tools/bvh_union_sim.py [helmet|courtyard]
-
-Reports, for primary tile packets and emulated incoherent bounce/shadow
-packets: union visits per packet, per-ray visits (the coherence-free lower
-bound), and leaf visits.
+A node counts as visited when ANY live ray of the group hits its box, over
+the tree collapsed to `width`-wide nodes (two binary levels per wide level
+at width 4). That count is computable exactly in numpy, so a change to BVH
+construction can be judged without a device; tests/test_bvh.py pins it to a
+band on a fixed scene.
 """
-
-import os
-import sys
-import time
 
 import numpy as np
 
-sys.path.insert(0, ".")
-
 
 def wide_children(tree, width=4):
-    """FlatBVH -> wide arrays: boxes (W, width, 6), kids (W, width) wide ids
-    (-1 empty), leaf (W, width) binary-node id when the child is a leaf else
-    -1, root wide id. Mirrors ops/bvh.build_wide_maps collapse."""
-    from gltf_renderer_tpu.ops import bvh as bvh_ops
-
-    maps, root_meta = bvh_ops.build_wide_maps(tree, width=width)
-    src = np.asarray(maps.child_src)          # (W, width) binary node id or -1
-    meta = np.asarray(maps.meta)              # (W, width) meta words
-    n = np.asarray(tree.aabb_min).shape[0]
+    """FlatBVH -> wide arrays: boxes (W, width, 6) (NaN for an empty child),
+    kids (W, width) wide ids (-1: not an internal child), leaf (W, width)
+    binary leaf id (-1: not a leaf child), root wide id (0)."""
+    levels = {4: 2, 8: 3, 16: 4}[width]
+    count = np.asarray(tree.count)
+    right = np.asarray(tree.right)
     lo = np.asarray(tree.aabb_min)
     hi = np.asarray(tree.aabb_max)
-    boxes = np.full(src.shape + (6,), np.nan, np.float32)
-    ok = src >= 0
-    boxes[ok, 0:3] = lo[src[ok]]
-    boxes[ok, 3:6] = hi[src[ok]]
-    is_leaf = (meta & bvh_ops.WIDE_LEAF_BIT) != 0
-    kids = np.where(ok & ~is_leaf, meta & bvh_ops.WIDE_ID_MASK, -1)
-    leaf = np.where(ok & is_leaf, src, -1)
-    root = root_meta & bvh_ops.WIDE_ID_MASK
-    return boxes, kids, leaf, root
+
+    def expand(b, depth):
+        """Descend `depth` binary levels from node b, stopping at leaves."""
+        if count[b] > 0 or depth == 0:
+            return [b]
+        return expand(b + 1, depth - 1) + expand(right[b], depth - 1)
+
+    wide_id, children, work = {0: 0}, {0: [0]}, []
+    if count[0] == 0:  # else a single-leaf tree: one wide node, the leaf
+        work.append(0)
+    while work:
+        b = work.pop()
+        children[b] = expand(b + 1, levels - 1) + expand(right[b], levels - 1)
+        for e in children[b]:
+            if count[e] == 0 and e not in wide_id:
+                wide_id[e] = len(wide_id)
+                work.append(e)
+    order = sorted(wide_id, key=wide_id.get)
+    boxes = np.full((len(order), width, 6), np.nan, np.float32)
+    kids = np.full((len(order), width), -1, np.int64)
+    leaf = np.full((len(order), width), -1, np.int64)
+    for w, b in enumerate(order):
+        for c, e in enumerate(children[b]):
+            boxes[w, c, 0:3] = lo[e]
+            boxes[w, c, 3:6] = hi[e]
+            if count[e] > 0:
+                leaf[w, c] = e
+            else:
+                kids[w, c] = wide_id[e]
+    return boxes, kids, leaf, 0
 
 
 def union_visits(boxes, kids, leaf, root, o, d, t_min, t_cap):
-    """Count wide-node visits for ONE packet (kernel union semantics,
-    pruning bound = per-lane t_cap). Returns (node_visits, leaf_visits,
+    """Count wide-node visits for ONE ray group (union semantics, pruning
+    bound = per-lane t_cap). Returns (node_visits, leaf_visits,
     per_ray_visits_mean)."""
     inv = np.where(np.abs(d) > 1e-20, 1.0 / d, np.sign(d) * 1e30 + 1e30)
     stack = [root]
@@ -76,421 +81,3 @@ def union_visits(boxes, kids, leaf, root, o, d, t_min, t_cap):
             elif leaf[w, c] >= 0:
                 leaf_visits += 1
     return node_visits, leaf_visits, per_ray.mean()
-
-
-def main():
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
-
-    from bench import build_bench_scene
-    from gltf_renderer_tpu.ops import bvh as bvh_ops
-    from gltf_renderer_tpu.render import pathtracer as pt
-
-    kind = sys.argv[1] if len(sys.argv) > 1 else "helmet"
-    os.environ["BENCH_SCENE"] = kind
-    W, H = 1920, 1080
-    scene, meta, settings, params, c2w, n_tris = build_bench_scene(W, H)
-    world = scene.world
-    wpos = np.asarray(world.position)
-    tv = np.asarray(world.tri_vertex)
-    tree = jax.tree.map(np.asarray, scene.bvh)
-
-    width = int(os.environ.get("GLTF_TPU_WIDE", "4"))
-    boxes, kids, leaf, root = wide_children(tree, width)
-    print(f"{kind}: {n_tris} tris, wide nodes {kids.shape[0]} (width {width})")
-
-    # --- Primary packets: real camera rays in 32x32-tile order.
-    px_t, py_t, valid_t = pt._tile_order(W, H)
-    rng = np.random.RandomState(0)
-    packet = 2048
-    n_primary = 6
-    # Packets around the image center (the bench scene fills the middle;
-    # random tiles often see only sky).
-    center = np.argmin(np.abs(px_t - W // 2) + np.abs(py_t - H // 2))
-    c0 = (int(center) // packet) * packet
-    starts = [max(0, c0 + (i - n_primary // 2) * packet) for i in range(n_primary)]
-    zero_j = jnp.zeros((packet, 2), jnp.float32)
-
-    prim_hits = []
-    tot_n = tot_l = tot_pr = 0.0
-    for s in starts:
-        px = jnp.asarray(px_t[s : s + packet])
-        py = jnp.asarray(py_t[s : s + packet])
-        o, draw = pt.generate_camera_rays(px, py, (W, H), jnp.asarray(c2w), zero_j)
-        ln = np.linalg.norm(np.asarray(draw), axis=-1)
-        o = np.asarray(o)
-        d = np.asarray(draw) / ln[:, None]
-        # True hit t for the pruning bound (optimistic vs the kernel's
-        # deferred t_best, consistent across tree variants).
-        hit = bvh_ops.intersect_closest_p(
-            scene.packed, jnp.asarray(o), jnp.asarray(d),
-            jnp.zeros(packet), jnp.asarray(ln))
-        t = np.asarray(hit.t)
-        hitm = np.asarray(hit.tri) >= 0
-        prim_hits.append((o, d, t, hitm))
-        nv, lv, pr = union_visits(boxes, kids, leaf, root, o, d,
-                                  np.zeros(packet, np.float32),
-                                  np.where(hitm, t * 1.0001, ln).astype(np.float32))
-        tot_n += nv; tot_l += lv; tot_pr += pr
-    print(f"primary : union visits/packet {tot_n / n_primary:8.0f}   "
-          f"leaf {tot_l / n_primary:6.0f}   per-ray {tot_pr / n_primary:7.1f}")
-
-    # --- Incoherent packets: bounce-like (cosine about normal-ish = random
-    # up-hemisphere) and shadow-like (random env directions, t_max 1000,
-    # misses never shrink) from REAL primary hit points.
-    opts, dirs = [], []
-    for o, d, t, hitm in prim_hits:
-        p = o[hitm] + d[hitm] * t[hitm, None] * 0.9999
-        opts.append(p)
-    pts = np.concatenate(opts, 0)
-    if len(pts) < packet:
-        reps = -(-packet // max(len(pts), 1))
-        pts = np.tile(pts, (reps, 1))
-    idx = rng.choice(len(pts), packet, replace=False)
-    org = pts[idx].astype(np.float32)
-    z = rng.rand(packet).astype(np.float32)
-    phi = rng.rand(packet).astype(np.float32) * 2 * np.pi
-    r_ = np.sqrt(np.maximum(1 - z * z, 0))
-    d_inc = np.stack([r_ * np.cos(phi), r_ * np.sin(phi), z], -1).astype(np.float32)
-
-    t_cap = np.full(packet, 1000.0, np.float32)
-    t_min_i = np.full(packet, 1e-3, np.float32)
-    nv, lv, pr = union_visits(boxes, kids, leaf, root, org, d_inc, t_min_i, t_cap)
-    print(f"shadow-like: union visits/packet {nv:8.0f}   leaf {lv:6.0f}   "
-          f"per-ray {pr:7.1f}   waste {1 - pr / max(nv, 1):.3f}")
-    for cut in (2, 3, 4):
-        ta = treelet_analysis(boxes, kids, leaf, root, org, d_inc,
-                              t_min_i, t_cap, cut)
-        total = ta["top_nodes"] + ta["bot_nodes"]
-        total_l = ta["top_leaves"] + ta["bot_leaves"]
-        print(f"  treelet cut depth {cut}: treelets {ta['n_treelets']:4d} "
-              f"pairs/ray {ta['pairs_per_ray']:5.2f} "
-              f"nodes {total:6.0f} (top {ta['top_nodes']}) "
-              f"leaves {total_l:6.0f}  vs baseline nodes {nv:.0f} leaves {lv:.0f}")
-
-    # --- Leaf-size sweep: rebuild the tree, recount unions. Cost model:
-    # pop chain ~0.55 us/visit (nodes AND leaf pops), leaf vector work
-    # ~0.075 us per triangle slot over a 16-row packet (MT ~35 ops).
-    p0 = wpos[tv[:, 0]]
-    p1 = wpos[tv[:, 1]]
-    p2 = wpos[tv[:, 2]]
-    C_POP, C_TRI = 0.55, 0.075
-    print("leaf-size sweep (shadow-like packet):")
-    for ls in (16, 8, 4):
-        tr = bvh_ops.build(p0, p1, p2, leaf_size=ls)
-        b2, k2, l2, r2 = wide_children(tr, width)
-        nv2, lv2, pr2 = union_visits(b2, k2, l2, r2, org, d_inc, t_min_i, t_cap)
-        cost = (nv2 + lv2) * C_POP + lv2 * ls * C_TRI
-        print(f"  leaf {ls:2d}: nodes {nv2:6.0f} leaves {lv2:6.0f} "
-              f"tri-tests {lv2 * ls:7.0f}  modeled {cost:7.0f} us/packet")
-
-    # --- Construction quality: exhaustive all-axes sweep SAH vs the
-    # production single-axis binned SAH (union visits decide).
-    lo3 = np.minimum(np.minimum(p0, p1), p2).astype(np.float32)
-    hi3 = np.maximum(np.maximum(p0, p1), p2).astype(np.float32)
-    t0 = time.time()
-    tr_sw = build_sweep_sah(lo3, hi3, leaf_size=16)
-    bs, ks, ls_, rs = wide_children(tr_sw, width)
-    nv3, lv3, pr3 = union_visits(bs, ks, ls_, rs, org, d_inc, t_min_i, t_cap)
-    print(f"sweep-SAH (all axes, exhaustive, build {time.time()-t0:.0f}s): "
-          f"nodes {nv3:6.0f} leaves {lv3:6.0f}  "
-          f"vs binned {nv:.0f}/{lv:.0f}  "
-          f"({(nv3 + lv3) / max(nv + lv, 1) - 1:+.1%} visits)")
-    if os.environ.get("GLTF_TPU_SIM_SBVH", "0") == "1":
-        t0 = time.time()
-        tr_sb, dup = build_sbvh(lo3, hi3, leaf_size=16)
-        bb, kb, lb, rb = wide_children(tr_sb, width)
-        nv4, lv4, _ = union_visits(bb, kb, lb, rb, org, d_inc, t_min_i, t_cap)
-        print(f"SBVH-lite (spatial splits, dup {dup:.2f}x, build "
-              f"{time.time()-t0:.0f}s): nodes {nv4:6.0f} leaves {lv4:6.0f}  "
-              f"({(nv4 + lv4) / max(nv + lv, 1) - 1:+.1%} visits)")
-
-
-
-def treelet_analysis(boxes, kids, leaf, root, o, d, t_min, t_cap, depth_cut):
-    """Model the two-phase treelet traversal on one incoherent packet:
-    top phase = packet-union over nodes with depth < depth_cut;
-    per-ray treelet masks at the cut; bottom phase = per-treelet packets
-    (all rays that want that treelet) over the treelet subtree union.
-    Returns dict of step counts."""
-    inv = np.where(np.abs(d) > 1e-20, 1.0 / d, np.sign(d) * 1e30 + 1e30)
-    r = o.shape[0]
-
-    def ray_boxhit(b):
-        t0 = (b[None, 0:3] - o) * inv
-        t1 = (b[None, 3:6] - o) * inv
-        tn = np.minimum(t0, t1).max(-1)
-        tf = np.maximum(t0, t1).min(-1)
-        return (tf >= np.maximum(tn, t_min)) & (tn <= t_cap)
-
-    # BFS from root with per-ray reach masks.
-    top_nodes = 0
-    top_leaves = 0
-    roots = []          # (wide id, per-ray reach) at the cut
-    stack = [(root, np.ones(r, bool), 0)]
-    while stack:
-        w, reach, depth = stack.pop()
-        if depth >= depth_cut:
-            roots.append((w, reach))
-            continue
-        top_nodes += 1
-        for c in range(kids.shape[1]):
-            if np.isnan(boxes[w, c, 0]):
-                continue
-            h = reach & ray_boxhit(boxes[w, c])
-            if not h.any():
-                continue
-            if kids[w, c] >= 0:
-                stack.append((kids[w, c], h, depth + 1))
-            elif leaf[w, c] >= 0:
-                top_leaves += 1  # leaf above the cut: tested in top phase
-    # Bottom phase: per-treelet packets.
-    bot_nodes = 0
-    bot_leaves = 0
-    n_pairs = 0
-    bot_packets = 0
-    for w, reach in roots:
-        sel = np.nonzero(reach)[0]
-        if len(sel) == 0:
-            continue
-        n_pairs += len(sel)
-        n_sub_packets = -(-len(sel) // o.shape[0])  # cap at packet size
-        bot_packets += max(n_sub_packets, 1)
-        nv, lv, _ = union_visits(boxes, kids, leaf, w, o[sel], d[sel],
-                                 t_min[sel], t_cap[sel])
-        bot_nodes += nv
-        bot_leaves += lv
-    return dict(top_nodes=top_nodes, top_leaves=top_leaves,
-                n_treelets=len(roots), n_pairs=n_pairs,
-                pairs_per_ray=n_pairs / r, bot_packets=bot_packets,
-                bot_nodes=bot_nodes, bot_leaves=bot_leaves)
-
-
-def build_sweep_sah(lo, hi, leaf_size=16):
-    """Exhaustive sweep SAH over ALL 3 axes (offline experiment builder;
-    the production builders are single-axis binned SAH). Returns a FlatBVH
-    built with the same threading/layout as ops/bvh._build_recursive."""
-    from gltf_renderer_tpu.ops.bvh import FlatBVH
-
-    t = lo.shape[0]
-    centroid = (lo + hi) * 0.5
-    order = np.arange(t, dtype=np.int32)
-    n_min, n_max, n_first, n_count, n_right, n_skip, n_level = [], [], [], [], [], [], []
-    sys.setrecursionlimit(max(100000, sys.getrecursionlimit()))
-
-    def area3(lo_a, hi_a):
-        d = np.maximum(hi_a - lo_a, 0)
-        return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] + d[..., 2] * d[..., 0]
-
-    def build(begin, end, level):
-        node = len(n_min)
-        idx = order[begin:end]
-        n_min.append(lo[idx].min(0))
-        n_max.append(hi[idx].max(0))
-        n_first.append(begin)
-        n_count.append(0)
-        n_right.append(-1)
-        n_skip.append(-1)
-        n_level.append(level)
-        count = end - begin
-        if count <= leaf_size:
-            n_count[node] = count
-            return node
-        best = (np.inf, -1, -1)  # (cost, axis, k)
-        orders = []
-        for ax in range(3):
-            o = idx[np.argsort(centroid[idx, ax], kind="stable")]
-            orders.append(o)
-            l_lo = np.minimum.accumulate(lo[o], 0)
-            l_hi = np.maximum.accumulate(hi[o], 0)
-            r_lo = np.minimum.accumulate(lo[o][::-1], 0)[::-1]
-            r_hi = np.maximum.accumulate(hi[o][::-1], 0)[::-1]
-            k = np.arange(1, count)
-            cost = area3(l_lo[:-1], l_hi[:-1]) * k + area3(r_lo[1:], r_hi[1:]) * (count - k)
-            j = int(np.argmin(cost))
-            if cost[j] < best[0]:
-                best = (float(cost[j]), ax, j + 1)
-        _, ax, k = best
-        if ax < 0:
-            n_count[node] = count
-            return node
-        order[begin:end] = orders[ax]
-        n_count[node] = 0
-        n_first[node] = node + 1
-        build(begin, begin + k, level + 1)
-        r = build(begin + k, end, level + 1)
-        n_right[node] = r
-        return node
-
-    build(0, t, 0)
-    n = len(n_min)
-    # skip links: DFS threading (next node when subtree is done).
-    skip = np.full(n, n, np.int32)
-    stack = [(0, n)]
-    i = 0
-    first_arr = np.asarray(n_first, np.int32)
-    count_arr = np.asarray(n_count, np.int32)
-    right_arr = np.asarray(n_right, np.int32)
-
-    def thread(node, nxt):
-        skip[node] = nxt
-        if count_arr[node] == 0 and right_arr[node] >= 0:
-            thread(node + 1, right_arr[node])
-            thread(right_arr[node], nxt)
-
-    thread(0, n)
-    return FlatBVH(
-        np.asarray(n_min, np.float32), np.asarray(n_max, np.float32),
-        first_arr, count_arr, skip, right_arr,
-        order, np.asarray(n_level, np.int32),
-    )
-
-
-
-def build_sbvh(lo, hi, leaf_size=16, bins=32, max_dup=2.0):
-    """SBVH-lite (offline experiment): at each node evaluate the best OBJECT
-    split (all-axes sweep over reference centroids) AND the best SPATIAL
-    split (chopped binning — references straddling the plane go to BOTH
-    sides with their boxes CLAMPED), take the cheaper. Reference count may
-    grow up to max_dup x. Returns a FlatBVH-shaped tree for union counting
-    (leaf contents are reference boxes; triangle identity is irrelevant to
-    the union metric)."""
-    from gltf_renderer_tpu.ops.bvh import FlatBVH
-
-    t0 = lo.shape[0]
-    max_refs = int(t0 * max_dup)
-    # Reference arrays (grow under spatial splits).
-    r_lo = list(lo)
-    r_hi = list(hi)
-    n_min, n_max, n_first, n_count, n_right, n_level = [], [], [], [], [], []
-    sys.setrecursionlimit(max(200000, sys.getrecursionlimit()))
-
-    def area3(lo_a, hi_a):
-        d = np.maximum(hi_a - lo_a, 0)
-        return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] + d[..., 2] * d[..., 0]
-
-    def build(refs, level):
-        node = len(n_min)
-        rlo = np.asarray([r_lo[i] for i in refs])
-        rhi = np.asarray([r_hi[i] for i in refs])
-        n_min.append(rlo.min(0))
-        n_max.append(rhi.max(0))
-        n_first.append(0)
-        n_count.append(0)
-        n_right.append(-1)
-        n_level.append(level)
-        count = len(refs)
-        if count <= leaf_size:
-            n_count[node] = count
-            return node
-        centroid = (rlo + rhi) * 0.5
-
-        # Object split: all-axes sweep (as build_sweep_sah).
-        best = (np.inf, None, None)  # (cost, left_refs, right_refs)
-        for ax in range(3):
-            o = np.argsort(centroid[:, ax], kind="stable")
-            l_lo = np.minimum.accumulate(rlo[o], 0)
-            l_hi = np.maximum.accumulate(rhi[o], 0)
-            rr_lo = np.minimum.accumulate(rlo[o][::-1], 0)[::-1]
-            rr_hi = np.maximum.accumulate(rhi[o][::-1], 0)[::-1]
-            k = np.arange(1, count)
-            cost = (area3(l_lo[:-1], l_hi[:-1]) * k
-                    + area3(rr_lo[1:], rr_hi[1:]) * (count - k))
-            j = int(np.argmin(cost))
-            if cost[j] < best[0]:
-                sel = o[: j + 1]
-                best = (float(cost[j]), [refs[i] for i in sel],
-                        [refs[i] for i in o[j + 1 :]])
-
-        # Spatial split (chopped binning) — only while duplication budget
-        # remains.
-        if len(r_lo) < max_refs:
-            node_lo = n_min[node]
-            node_hi = n_max[node]
-            for ax in range(3):
-                ext = node_hi[ax] - node_lo[ax]
-                if ext <= 1e-9:
-                    continue
-                for b in range(1, bins):
-                    plane = node_lo[ax] + ext * b / bins
-                    lmask = rlo[:, ax] < plane
-                    rmask = rhi[:, ax] > plane
-                    nl = int(lmask.sum())
-                    nr = int(rmask.sum())
-                    if nl == 0 or nr == 0 or nl + nr > count * 1.5:
-                        continue
-                    llo = rlo[lmask].min(0); lhi = rhi[lmask].max(0).copy()
-                    rlo2 = rlo[rmask].min(0).copy(); rhi2 = rhi[rmask].max(0)
-                    lhi[ax] = min(lhi[ax], plane)
-                    rlo2[ax] = max(rlo2[ax], plane)
-                    cost = float(area3(llo, lhi) * nl + area3(rlo2, rhi2) * nr)
-                    if cost < best[0]:
-                        lrefs, rrefs = [], []
-                        for i, ref in enumerate(refs):
-                            inl = lmask[i]
-                            inr = rmask[i]
-                            if inl and inr:
-                                # split the reference: clamp boxes
-                                la = r_lo[ref].copy(); ha = r_hi[ref].copy()
-                                ha[ax] = min(ha[ax], plane)
-                                lb = r_lo[ref].copy(); hb = r_hi[ref].copy()
-                                lb[ax] = max(lb[ax], plane)
-                                r_lo.append(lb); r_hi.append(hb)
-                                new_ref = len(r_lo) - 1
-                                lrefs.append((ref, la, ha))
-                                rrefs.append((new_ref, None, None))
-                            elif inl:
-                                lrefs.append((ref, None, None))
-                            else:
-                                rrefs.append((ref, None, None))
-                        # apply clamps lazily below via tuples
-                        best = (cost, ("spatial", lrefs), ("spatial", rrefs))
-
-        _, L, R = best
-        if L is None:
-            n_count[node] = count
-            return node
-
-        def materialize(side):
-            if isinstance(side, tuple) and side and side[0] == "spatial":
-                out = []
-                for ref, la, ha in side[1]:
-                    if la is not None:
-                        r_lo[ref] = la
-                        r_hi[ref] = ha
-                    out.append(ref)
-                return out
-            return side
-
-        lrefs = materialize(L)
-        rrefs = materialize(R)
-        n_first[node] = node + 1
-        build(lrefs, level + 1)
-        r = build(rrefs, level + 1)
-        n_right[node] = r
-        return node
-
-    build(list(range(t0)), 0)
-    n = len(n_min)
-    skip = np.full(n, n, np.int32)
-    count_arr = np.asarray(n_count, np.int32)
-    right_arr = np.asarray(n_right, np.int32)
-
-    def thread(node, nxt):
-        skip[node] = nxt
-        if count_arr[node] == 0 and right_arr[node] >= 0:
-            thread(node + 1, right_arr[node])
-            thread(right_arr[node], nxt)
-
-    thread(0, n)
-    return FlatBVH(
-        np.asarray(n_min, np.float32), np.asarray(n_max, np.float32),
-        np.asarray(n_first, np.int32), count_arr, skip, right_arr,
-        np.arange(len(r_lo), dtype=np.int32), np.asarray(n_level, np.int32),
-    ), len(r_lo) / t0
-
-
-if __name__ == "__main__":
-    main()

@@ -19,8 +19,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from PIL import Image  # noqa: E402
-
+from gltf_renderer.utils.png import save_png  # noqa: E402
 from tests.golden_configs import CONFIGS, GOLDEN_DIR  # noqa: E402
 
 
@@ -36,10 +35,10 @@ def make_bench_fidelity():
     import bench as bench_mod
 
     saved = {k: os.environ.get(k) for k in
-             ("GLTF_TPU_QUAD", "GLTF_TPU_BF16ROWS", "GLTF_TPU_QUADF32")}
-    os.environ["GLTF_TPU_QUAD"] = "0"
-    os.environ["GLTF_TPU_BF16ROWS"] = "0"
-    os.environ["GLTF_TPU_QUADF32"] = "1"  # f32 cube quads: the golden stays
+             ("GLTF_QUAD", "GLTF_BF16ROWS", "GLTF_QUADF32")}
+    os.environ["GLTF_QUAD"] = "0"
+    os.environ["GLTF_BF16ROWS"] = "0"
+    os.environ["GLTF_QUADF32"] = "1"  # f32 cube quads: the golden stays
     # full-precision so the bench probe measures the f16 table quantization
     try:
         w, h = bench_mod.FIDELITY_RES
@@ -84,7 +83,7 @@ def main(argv):
         with tempfile.TemporaryDirectory() as tmp:
             img = CONFIGS[name](tmp)
         out = os.path.join(GOLDEN_DIR, f"{name}.png")
-        Image.fromarray(img).save(out)
+        save_png(out, img)
         print(f"{name}: {img.shape} -> {out} ({time.time() - t0:.1f}s)")
 
 

@@ -1,13 +1,12 @@
 #!/usr/bin/env python
 """BASELINE config 5: courtyard (Sponza-class) @1080p path traced to 1024
-accumulated spp with alpha shadows — the converged artifact (VERDICT r4 #7).
+accumulated spp with alpha shadows — the converged artifact.
 
-At ~1 Mrays/s this is hours of chip time, which is exactly what the
-renderer's checkpoint machinery exists for (renderer.save_state /
+A long render is what the renderer's checkpoint machinery exists for (renderer.save_state /
 load_state, the progressive-accumulation state the reference CANNOT
 persist, Pathtracer.cpp:259-272): the render runs in resumable sessions,
 checkpointing every --ckpt-every frames, and can be killed/restarted at
-any point (including across driver rounds).
+any point.
 
     python tools/render_config5.py [--frames 1024] [--out docs/artifacts]
 
@@ -42,12 +41,10 @@ def main():
 
     import bench
     import jax
-    from gltf_renderer_tpu.render import settings as S
-    from gltf_renderer_tpu.render.renderer import Renderer
-    from gltf_renderer_tpu.camera import look_at
-    from gltf_renderer_tpu.scene.procedural import write_courtyard_glb
-
-    bench._warm_pallas()
+    from gltf_renderer.render import settings as S
+    from gltf_renderer.render.renderer import Renderer
+    from gltf_renderer.camera import look_at
+    from gltf_renderer.scene.procedural import write_courtyard_glb
 
     # The bench courtyard (BASELINE config-5 analogue: ~274k tris, alpha-
     # MASKED banners, alpha shadows on) + the bench analytic HDR sky.
@@ -118,9 +115,9 @@ def main():
             if time.time() - t_report > 60:
                 print(f"[config5] {state}", flush=True)
                 t_report = time.time()
-            from PIL import Image
+            from gltf_renderer.utils.png import save_png
 
-            Image.fromarray(last).save(png)
+            save_png(png, last)
     print(f"[config5] DONE: {r.accumulated_frames} spp in "
           f"{prior_s + time.time() - t0:.0f}s total -> {png}", flush=True)
 
